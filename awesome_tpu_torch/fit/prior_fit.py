@@ -122,7 +122,8 @@ def run_fit_loop(loss_grad: Callable, params: Params, cfg: FitConfig,
     ``loss_grad(params) -> (loss, grads)``; the loss has ``batch_shape``
     (one value per image). ``group_mean``: one optimizer/plateau state for
     the whole group, driven by the mean loss (the grouped fused fit).
-    Returns ``(params, loss_hist (steps, *batch_shape), lr_scale)``.
+    Returns ``(params, loss_hist (steps, *batch_shape), lr_scale)``. Adds
+    the steps it ran to ``run_fit_loop.steps``.
     """
     init_fn, update_fn = _optim_fns(cfg)
     dev = T.tree_leaves(params)[0].device
@@ -154,11 +155,15 @@ def run_fit_loop(loss_grad: Callable, params: Params, cfg: FitConfig,
         sched = optim.plateau_update(sched, loss, factor=cfg.plateau_factor,
                                      patience=cfg.plateau_patience)
         hist.append(loss_vec)
+    run_fit_loop.steps += cfg.num_steps
     if hist:
         loss_hist = torch.stack(hist)
     else:
         loss_hist = torch.zeros((0,) + batch_shape, device=dev)
     return params, loss_hist, sched.scale
+
+
+run_fit_loop.steps = 0
 
 
 def _default_loss(model, cfg: FitConfig) -> Callable:

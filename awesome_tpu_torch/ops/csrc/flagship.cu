@@ -71,8 +71,8 @@
 // Built with -DFLAGSHIP_PROFILE, the kernel adds the cycles of each phase of
 // block (0, 0) into g_phase_cycles (read by flagship_phase_cycles); every
 // PHASE(k) then also waits at a barrier, so phases do not overlap. Without
-// the define PHASE(k) is empty. `awesome_tpu_torch/ops/flagship_phases.py`
-// builds this variant and prints the breakdown.
+// the define PHASE(k) is empty. `tools/flagship_phases.py` builds this
+// variant and prints the breakdown.
 #ifdef FLAGSHIP_PROFILE
 __device__ unsigned long long g_phase_cycles[16];
 #define PHASE(k)                                                          \

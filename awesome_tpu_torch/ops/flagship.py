@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import hashlib
 import math
 import os
 import shutil
@@ -356,50 +357,52 @@ def _nvcc() -> str:
                        "the flagship kernel")
 
 
-def build_library(profile: bool = False) -> Path:
-    """Compile ``csrc/flagship.cu`` for ``sm_90a`` into a shared library
-    (once per source change) and return its path. The compiler's report
-    (``-Xptxas -v``: registers, shared memory, spills) is kept beside it in
-    ``<name>.build.log``. ``profile=True`` builds the variant with per-phase
-    cycle counters (``-DFLAGSHIP_PROFILE``), used by ``flagship_phases``."""
-    name = "flagship_prof" if profile else "flagship"
-    out = _BUILD_DIR / f"lib{name}.so"
-    if out.exists() and out.stat().st_mtime >= _CSRC.stat().st_mtime:
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def build_library(extra_flags: Tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/flagship.cu`` for ``sm_90a`` into a shared library and
+    return its path. The file is named after a hash of the source text and
+    the compiler flags, so a build is reused only for the same source and
+    flags. The compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside it in ``<name>.build.log``."""
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    digest = hashlib.sha1(_CSRC.read_bytes())
+    digest.update("\0".join(flags).encode())
+    out = _BUILD_DIR / f"libflagship-{digest.hexdigest()[:12]}.so"
+    if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"lib{name}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(_CSRC)]
-    if profile:
-        cmd.insert(1, "-DFLAGSHIP_PROFILE")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (_BUILD_DIR / f"{name}.build.log").write_text(res.stdout + res.stderr)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    res = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(_CSRC)],
+                         capture_output=True, text=True)
+    out.with_suffix(".build.log").write_text(res.stdout + res.stderr)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
     return out
 
 
-def _library(profile: bool = False) -> ctypes.CDLL:
-    key = "prof" if profile else "lib"
-    if key not in _LIB:
-        lib = ctypes.CDLL(str(build_library(profile)))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.flagship_loss_grad.argtypes = (
-            [vp] * 8 + [i] * 13 + [vp])
-        lib.flagship_loss_grad.restype = i
-        lib.flagship_smem_bytes.argtypes = [i] * 5
-        lib.flagship_smem_bytes.restype = i
-        lib.flagship_device_limits.argtypes = [i, vp, vp]
-        lib.flagship_device_limits.restype = i
-        lib.flagship_blocks_per_sm.argtypes = [i] * 3
-        lib.flagship_blocks_per_sm.restype = i
-        if profile:
-            lib.flagship_phase_cycles.argtypes = [vp, i]
-            lib.flagship_phase_cycles.restype = i
-        _LIB[key] = lib
-    return _LIB[key]
+def load_library(path: Path) -> ctypes.CDLL:
+    """Load a build of the kernel and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.flagship_loss_grad.argtypes = [vp] * 8 + [i] * 13 + [vp]
+    lib.flagship_loss_grad.restype = i
+    lib.flagship_smem_bytes.argtypes = [i] * 5
+    lib.flagship_smem_bytes.restype = i
+    lib.flagship_device_limits.argtypes = [i, vp, vp]
+    lib.flagship_device_limits.restype = i
+    lib.flagship_blocks_per_sm.argtypes = [i] * 3
+    lib.flagship_blocks_per_sm.restype = i
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    if "lib" not in _LIB:
+        _LIB["lib"] = load_library(build_library())
+    return _LIB["lib"]
 
 
 def _check(code: int, what: str) -> None:
@@ -452,13 +455,11 @@ def launch_shape(spec: FlagshipSpec, n: int, group: int,
 def flagship_loss_grad_cuda(spec: FlagshipSpec, flat: torch.Tensor,
                             x: torch.Tensor, tgt: torch.Tensor,
                             wpt: torch.Tensor, use_sigmoid: bool,
-                            shape: LaunchShape,
-                            lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+                            shape: LaunchShape) -> torch.Tensor:
     """Launch the kernel: ``flat`` (G, P) params, ``x`` (N, 2), ``tgt`` and
     ``wpt`` (G, N), all float32, contiguous, on one CUDA device. Returns
     (G, P + 1): the packed grads of each image then its loss. Adds one to
-    ``flagship_loss_grad_cuda.launches``. ``lib``: another build of the
-    kernel (the profiled one); by default the plain build."""
+    ``flagship_loss_grad_cuda.launches``."""
     off, p_len = spec.offsets()
     g, n = tgt.shape
     dev = x.device
@@ -472,7 +473,7 @@ def flagship_loss_grad_cuda(spec: FlagshipSpec, flat: torch.Tensor,
                              f"{tuple(t.shape)}")
     if dev.type != "cuda":
         raise ValueError("the flagship kernel takes CUDA tensors only")
-    lib = lib or _library()
+    lib = _library()
     partials = torch.empty((g, shape.n_tiles, p_len + 1), device=dev)
     out = torch.empty((g, p_len + 1), device=dev)
     offsets = np.array([off[k] for k in PACKED_FIELDS] + [p_len], np.int32)

@@ -10,9 +10,10 @@ Phases, each printing its own line (any failure exits nonzero):
    ``build/awesome_tpu_torch/``) and its time;
 2. the fused loss+grad kernel against its plain PyTorch version on the
    card: the bench model (flow 32x12, ICNN 130x2) and the factory default
-   (flow 130x6, ICNN 130x2), N = 64*64 and a ragged 4097, G = 1 and G = 2
-   with distinct params and targets per image; loss rtol 1e-5, grads rtol
-   5e-4 atol 1e-6; two launches bitwise equal;
+   (flow 130x6, ICNN 130x2), and the bench model with a third ICNN layer
+   (the kernel's 32-point instantiation); N = 64*64 and a ragged 4097,
+   G = 1 and G = 2 with distinct params and targets per image; loss rtol
+   1e-5, grads rtol 5e-4 atol 1e-6; two launches bitwise equal;
 3. the main path: ``make_fit_fn(model, FitConfig(fused=True, ...))`` with
    the bench model at 480x640 on an ellipse target; the kernel's launch
    count must equal the steps, every loss be finite and the last below the
@@ -20,8 +21,9 @@ Phases, each printing its own line (any failure exits nonzero):
 4. the batched fused fit: ``make_batched_fit_fn`` on 8 images at 64x64
    with the IoU gate (threshold 0.5) and retry; prints gate IoUs and time;
 5. a ``kernels`` JSON line: per kernel its time at the path's shape, its
-   launches, its bound on this card, the plain version's time, and its
-   error against the plain version at that shape;
+   launches on its path, the steps that path ran and the launches per
+   step, its bound on this card, the plain version's time, and its error
+   against the plain version at that shape;
 6. the card's name and power limit, and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
@@ -65,6 +67,19 @@ def bench_model(shape, device):
         channels=2, hidden_units=32, flow_n_flows=12, flow_output_fn="tanh",
         spatial_shape=shape, convex_net_hidden_units=130,
         convex_net_hidden_layers=2, device=device)
+
+
+def deep_model(shape, device):
+    """The bench model with a third ICNN layer: too wide for the kernel's
+    64-point chunks, so the launch takes its 32-point instantiation."""
+    from awesome_tpu_torch.nn.path_connected import (
+        real_nvp_path_connected_net,
+    )
+
+    return real_nvp_path_connected_net(
+        channels=2, hidden_units=32, flow_n_flows=12, flow_output_fn="tanh",
+        spatial_shape=shape, convex_net_hidden_units=130,
+        convex_net_hidden_layers=3, device=device)
 
 
 def default_model(shape, device):
@@ -196,7 +211,8 @@ def bound_ms(spec, n: int, g: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_entry(name, replaces, model, n, g, seed, launches, reps, device):
+def kernel_entry(name, replaces, model, n, g, seed, launches, steps, reps,
+                 device):
     """Time the kernel and the plain version at one shape and hold them
     against each other there."""
     from awesome_tpu_torch.ops.flagship import (
@@ -220,7 +236,8 @@ def kernel_entry(name, replaces, model, n, g, seed, launches, reps, device):
     return {
         "name": name, "route": "cuda",
         "source": "awesome_tpu_torch/ops/csrc/flagship.cu",
-        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "replaces": replaces, "launches": launches, "steps": steps,
+        "launches_per_step": launches / steps, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "shape": {"n": n, "g": g},
     }
@@ -231,7 +248,11 @@ def main_path(steps: int, device):
     import torch
 
     from awesome_tpu_torch.core import grids as G
-    from awesome_tpu_torch.fit.prior_fit import FitConfig, make_fit_fn
+    from awesome_tpu_torch.fit.prior_fit import (
+        FitConfig,
+        make_fit_fn,
+        run_fit_loop,
+    )
     from awesome_tpu_torch.measures.metrics import iou
     from awesome_tpu_torch.ops.flagship import flagship_loss_grad_cuda
 
@@ -247,12 +268,14 @@ def main_path(steps: int, device):
     make_fit_fn(model, dataclasses.replace(cfg, num_steps=2))(
         params, pts, target)
     torch.cuda.synchronize()
-    flagship_loss_grad_cuda.launches = 0
+    flagship_loss_grad_cuda.launches = run_fit_loop.steps = 0
     t0 = time.perf_counter()
     fitted, aux = fit(params, pts, target)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = flagship_loss_grad_cuda.launches
+    launches, ran = flagship_loss_grad_cuda.launches, run_fit_loop.steps
+    if ran != steps:
+        raise AssertionError(f"the fit ran {ran} steps, asked {steps}")
     if launches != steps:
         raise AssertionError(f"kernel launched {launches} times in "
                              f"{steps} steps")
@@ -265,8 +288,8 @@ def main_path(steps: int, device):
     with torch.no_grad():
         prob = torch.sigmoid(model.apply(fitted, pts))
     score = float(iou(prob > 0.5, target > 0.5, invert=True))
-    return model, launches, {
-        "phase": "main_path", "shape": [h, w], "steps": steps,
+    return model, launches, ran, {
+        "phase": "main_path", "shape": [h, w], "steps": ran,
         "seconds": dt, "ms_per_step": 1e3 * dt / steps,
         "point_steps_per_s": steps * pts.shape[0] / dt,
         "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
@@ -280,7 +303,11 @@ def batched_path(steps: int, device):
 
     from awesome_tpu_torch.core import grids as G
     from awesome_tpu_torch.core import tree as T
-    from awesome_tpu_torch.fit.prior_fit import FitConfig, make_batched_fit_fn
+    from awesome_tpu_torch.fit.prior_fit import (
+        FitConfig,
+        make_batched_fit_fn,
+        run_fit_loop,
+    )
     from awesome_tpu_torch.ops.flagship import flagship_loss_grad_cuda
 
     h = w = 64
@@ -295,22 +322,22 @@ def batched_path(steps: int, device):
     run = make_batched_fit_fn(model, cfg)
     retry = list(range(100, 100 + batch))
     torch.cuda.synchronize()
-    flagship_loss_grad_cuda.launches = 0
+    flagship_loss_grad_cuda.launches = run_fit_loop.steps = 0
     t0 = time.perf_counter()
     fitted, aux = run(stacked, pts, targets, retry_keys=retry)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = flagship_loss_grad_cuda.launches
-    if launches < steps:
+    launches, ran = flagship_loss_grad_cuda.launches, run_fit_loop.steps
+    if ran < steps or launches != ran:
         raise AssertionError(f"batched fit launched the kernel {launches} "
-                             f"times for {steps} steps")
+                             f"times in {ran} steps")
     hist = aux["loss_hist"].cpu().numpy()
     if not np.isfinite(hist).all():
         raise AssertionError("non-finite loss in the batched fit")
     gate = aux["gate_iou"].cpu().numpy()
-    return model, launches, {
+    return model, launches, ran, {
         "phase": "batched_path", "images": batch, "shape": [h, w],
-        "steps": steps, "seconds": dt,
+        "steps": ran, "seconds": dt,
         "point_steps_per_s": launches * batch * pts.shape[0] / dt,
         "gate_iou": [float(v) for v in gate],
         "gate_pass": int((gate >= 0.5).sum()), "kernel_launches": launches,
@@ -330,35 +357,44 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     t0 = time.perf_counter()
     lib = flagship.build_library()
-    log = (lib.parent / "flagship.build.log").read_text()
+    log = lib.with_suffix(".build.log").read_text()
     print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
     t0 = time.perf_counter()
-    for name, make in (("bench", bench_model), ("default", default_model)):
+    for name, make, tp in (("bench", bench_model, 64),
+                           ("default", default_model, 64),
+                           ("deep", deep_model, 32)):
         model = make((64, 64), dev)
+        spec = flagship.FlagshipSpec.of(model)
         for n in (64 * 64, 4097):
             for g in (1, 2):
+                shape = flagship.launch_shape(spec, n, g, None,
+                                              torch.device(dev))
+                if shape.tp != tp:
+                    raise AssertionError(f"{name}: expected {tp}-point "
+                                         f"chunks, launch takes {shape.tp}")
                 err = kernel_vs_plain(model, n, g, 10 * g + n % 7, dev)
                 print(json.dumps({"phase": "kernel_vs_plain", "model": name,
-                                  "n": n, "g": g, "max_abs_err": err,
+                                  "n": n, "g": g, "tp": shape.tp,
+                                  "smem": shape.smem, "max_abs_err": err,
                                   "bitwise_repeat": True}), flush=True)
     print(f"kernel_vs_plain: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    model, main_launches, res = main_path(STEPS, dev)
+    model, main_launches, main_steps, res = main_path(STEPS, dev)
     print(json.dumps(res), flush=True)
-    bmodel, b_launches, res = batched_path(STEPS, dev)
+    bmodel, b_launches, b_steps, res = batched_path(STEPS, dev)
     print(json.dumps(res), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
         kernel_entry("flagship_loss_grad (K1, G=1)", replaces, model,
-                     480 * 640, 1, 7, main_launches, 20, dev),
+                     480 * 640, 1, 7, main_launches, main_steps, 20, dev),
         kernel_entry("flagship_loss_grad (K2, G=8)", replaces, bmodel,
-                     64 * 64, 8, 9, b_launches, 50, dev),
+                     64 * 64, 8, 9, b_launches, b_steps, 50, dev),
     ]
     print("library: no single PyTorch call computes this fused loss and "
           "gradient; library_ms is null")

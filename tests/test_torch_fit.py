@@ -221,6 +221,46 @@ def test_grouped_fused_fit_matches_single():
                                                compute_dtype=torch.bfloat16))
 
 
+@pytest.mark.parametrize("nan_target", [False, True])
+def test_grouped_fused_fit_matches_jax(nan_target):
+    """The group-mean semantics against JAX's grouped fused fit (its Pallas
+    kernel in interpret mode): a short plateau patience and a large LR make
+    the group's one LR decay within the run; a NaN target in one image
+    must freeze the whole group."""
+    from awesome_tpu.fit.fused_fit import (
+        make_grouped_fused_fit_fn as j_grouped,
+    )
+
+    h = w = 12
+    jm, tm = _models(h, w, flows=2, icnn=8, layers=1)
+    g = 2
+    js = jax.device_get(
+        jax.vmap(jm.init)(jax.random.split(jax.random.PRNGKey(0), g)))
+    pts = np.asarray(JG.flatten_grid(JG.pixel_grid((h, w))))
+    tgts = np.stack([_disk(h, w, 5, 5, 3), _disk(h, w, 7, 7, 3)])
+    if nan_target:
+        tgts[1, 7, 0] = np.nan
+    kw = dict(num_steps=20, lr=5e-2, nan_guard_grads=False,
+              plateau_patience=1)
+    ref_params, ref_aux = jax.jit(j_grouped(
+        jm, JF.FitConfig(**kw), group=g, interpret=True, tile_n=64))(
+        js, jnp.asarray(pts), jnp.asarray(tgts))
+    params, aux = make_grouped_fused_fit_fn(tm, TF.FitConfig(**kw), group=g)(
+        params_from_jax(js, device=CPU, stacked=True), torch.tensor(pts),
+        torch.tensor(tgts))
+    assert aux["loss_hist"].shape == (20, g)
+    np.testing.assert_allclose(aux["loss_hist"].numpy(),
+                               np.asarray(ref_aux["loss_hist"]),
+                               rtol=HIST_RTOL)
+    _assert_tree_close(params, ref_params, stacked=True)
+    assert float(aux["lr_scale"]) == float(ref_aux["lr_scale"])
+    if nan_target:
+        assert bool(torch.isnan(aux["loss_hist"][:, 1]).all())
+        _assert_tree_close(params, js, stacked=True)
+    else:
+        assert float(aux["lr_scale"]) < 1.0
+
+
 @pytest.mark.parametrize("mode,fg_weight,masked", [
     ("none", None, False), ("equal", None, True), ("ratio", None, False),
     ("sssdms", None, True), ("none", 0.7, False), ("none", 0.7, True)])

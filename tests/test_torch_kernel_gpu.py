@@ -25,13 +25,16 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("layers,tp", [(2, 64), (3, 32)])
+def test_cuda_kernel_matches_plain(cuda_device, layers, tp):
     """The CUDA kernel against the plain version on the card (bench-width
-    ICNN, ragged N, G = 2); two launches are bitwise equal."""
+    ICNN, ragged N, G = 2); two launches are bitwise equal. A third ICNN
+    layer no longer fits 64-point chunks in shared memory and takes the
+    32-point instantiation."""
     tm = t_factory(channels=2, hidden_units=32, flow_n_flows=12,
                    flow_output_fn="tanh", spatial_shape=(64, 64),
-                   convex_net_hidden_units=130, convex_net_hidden_layers=2,
-                   device=cuda_device)
+                   convex_net_hidden_units=130,
+                   convex_net_hidden_layers=layers, device=cuda_device)
     spec = TP.FlagshipSpec.of(tm)
     gen = torch.Generator().manual_seed(0)
     packs = [TP.pack_flagship(tm, TT.tree_map(
@@ -43,6 +46,7 @@ def test_cuda_kernel_matches_plain(cuda_device):
     x = torch.rand((n, 2), generator=gen).to(cuda_device)
     tgt = (torch.rand((2, n), generator=gen) > 0.5).float().to(cuda_device)
     wts = torch.full((2, n), 1.0 / n, device=cuda_device)
+    assert TP.launch_shape(spec, n, 2, None, x.device).tp == tp
     f = TP.FlagshipLossGrad(spec, True, 2, None)
     loss, grads = f.flat(flat, x, tgt, wts)
     loss2, grads2 = f.flat(flat, x, tgt, wts)

@@ -1,14 +1,15 @@
 """Where the flagship kernel's time goes, phase by phase, on the card.
 
-    python3 -m awesome_tpu_torch.ops.flagship_phases [--h 480] [--w 640]
+    python3 -m tools.flagship_phases [--h 480] [--w 640]
         [--model bench|default]
 
-Builds ``csrc/flagship.cu`` with ``-DFLAGSHIP_PROFILE`` (per-phase
-``clock64`` counters of block (0, 0), each phase closed by a barrier), runs
-one fused loss+grad on random params at the given image size, and prints
-one JSON line: the card, the launch shape, and each phase's cycles and
-share. The barriers the counters add make the profiled kernel a little
-slower than the plain build; the shares are what to read.
+Builds ``awesome_tpu_torch/ops/csrc/flagship.cu`` with
+``-DFLAGSHIP_PROFILE`` (per-phase ``clock64`` counters of block (0, 0),
+each phase closed by a barrier), runs one fused loss+grad on random params
+at the given image size through that build, and prints one JSON line: the
+card, the launch shape, and each phase's cycles and share. The barriers
+the counters add make the profiled kernel a little slower than the plain
+build; the shares are what to read.
 """
 from __future__ import annotations
 
@@ -59,13 +60,17 @@ def main() -> None:
     n = x.shape[0]
     tgt = (torch.rand((1, n), generator=gen) > 0.5).float().cuda()
     wpt = torch.full((1, n), 1.0 / n, device="cuda")
-    lib = F._library(profile=True)
+    # the wrapper loads its library once; hand it the profiled build
+    lib = F.load_library(F.build_library(("-DFLAGSHIP_PROFILE",)))
+    lib.flagship_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.flagship_phase_cycles.restype = ctypes.c_int
+    F._LIB["lib"] = lib
     shape = F.launch_shape(spec, n, 1, None, x.device)
-    F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True, shape, lib)
+    F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True, shape)
     torch.cuda.synchronize()
     counts = (ctypes.c_ulonglong * 16)()
     F._check(lib.flagship_phase_cycles(None, 1), "reset counters")
-    F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True, shape, lib)
+    F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True, shape)
     torch.cuda.synchronize()
     F._check(lib.flagship_phase_cycles(ctypes.addressof(counts), 0),
              "read counters")
