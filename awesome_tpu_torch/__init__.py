@@ -3,9 +3,10 @@
 
 Module for module it mirrors the JAX package (``core``, ``nn``,
 ``measures``, ``fit``, ``ops``) so a reader can find each counterpart.
-Parameters are nested dicts of tensors, like the JAX param trees; the
-fused flagship loss+grad runs as a hand-written CUDA kernel
-(``ops/csrc/flagship.cu``).
+Parameters are nested dicts of tensors, like the JAX param trees. Every
+Pallas kernel of the JAX package has a hand-written CUDA counterpart: the
+fused flagship loss+grad (``ops/csrc/flagship.cu``) and the ICNN forward
+and backward (``ops/csrc/icnn.cu``).
 
 Entry points that create tensors take ``device=`` and default to
 ``"cuda"``; without a GPU they raise unless the caller passes

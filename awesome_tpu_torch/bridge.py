@@ -4,7 +4,8 @@ The trees have the same structure (dicts and lists, the same keys). One
 layout differs: a JAX ``Linear`` weight ``w`` is ``(in, out)`` and the
 port's is torch's ``(out, in)``. Every weight leaf named ``w`` with a
 matrix shape is transposed; 1-D ``w`` leaves (``PerChannelAffine``) are
-not. ``stacked=True`` means every leaf carries a leading image axis.
+not. ``stacked=True`` means every leaf carries a leading image axis;
+an int ``stacked`` counts leading axes (2 for an (image, object) tree).
 
 The JAX side is passed as numpy arrays (``jax.device_get`` of a tree), so
 this module imports no JAX.
@@ -29,12 +30,12 @@ def _walk(tree, leaf_fn, key=None):
     return leaf_fn(key, tree)
 
 
-def _is_matrix_weight(key, ndim: int, stacked: bool) -> bool:
-    return key == "w" and ndim == (3 if stacked else 2)
+def _is_matrix_weight(key, ndim: int, stacked: int) -> bool:
+    return key == "w" and ndim == 2 + int(stacked)
 
 
 def params_from_jax(tree: Params, device: DeviceLike = None,
-                    stacked: bool = False) -> Params:
+                    stacked: int = False) -> Params:
     """JAX param tree (leaves as numpy arrays) -> the port's params."""
     dev = resolve_device(device)
 
@@ -47,7 +48,7 @@ def params_from_jax(tree: Params, device: DeviceLike = None,
     return _walk(tree, leaf)
 
 
-def params_to_numpy(params: Params, stacked: bool = False) -> Params:
+def params_to_numpy(params: Params, stacked: int = False) -> Params:
     """The port's params -> a JAX-layout tree of numpy arrays; the exact
     inverse of :func:`params_from_jax`."""
 

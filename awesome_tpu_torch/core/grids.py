@@ -4,6 +4,7 @@ and dtype as the JAX package, so parity tests can feed the same points to
 both."""
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -63,3 +64,31 @@ def unflatten_grid(points: torch.Tensor,
     spatial = tuple(grid_shape[2:])
     c = points.shape[-1]
     return torch.movedim(points.reshape((b,) + spatial + (c,)), -1, 1)
+
+
+def circle_mask(grid_shape: Tuple[int, int], radius, center,
+                device: DeviceLike = None) -> torch.Tensor:
+    """Binary circle on a pixel grid (the ICNN circle prefit's target);
+    ``center`` is (row, col) in pixel units, as in the JAX package."""
+    dev = resolve_device(device)
+    h, w = grid_shape
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    cy, cx = center
+    return ((yy - cy) ** 2 + (xx - cx) ** 2) <= radius ** 2
+
+
+def unary_circle_approximation(unaries: torch.Tensor) -> torch.Tensor:
+    """Circle with the foreground's area and center of mass. ``unaries``
+    is (H, W), or squeezes to it, with foreground > 0."""
+    u = unaries.reshape(unaries.shape[-2:])
+    fg = (u > 0.0).to(torch.float32)
+    area = fg.sum()
+    h, w = u.shape
+    yy = torch.arange(h, dtype=torch.float32, device=u.device)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=u.device)[None, :]
+    denom = torch.clamp_min(area, 1.0)
+    cy = (fg * yy).sum() / denom
+    cx = (fg * xx).sum() / denom
+    radius = torch.sqrt(area / math.pi)
+    return ((yy - cy) ** 2 + (xx - cx) ** 2) <= radius ** 2

@@ -41,12 +41,14 @@ class _FlatFit:
     """What every fused engine shares: the loss+grad, the per-column weight
     decay and convexity mask of a flat row, and the pack/unpack of trees."""
 
-    def __init__(self, model, cfg: FitConfig, tile_n: Optional[int]):
+    def __init__(self, model, cfg: FitConfig, tile_n: Optional[int],
+                 group: int = 1, interleave: bool = False):
         _check_cfg(cfg)
         self.model = model
         self.cfg = cfg
         self.fused: FlagshipLossGrad = make_flagship_loss_grad(
-            model, use_sigmoid=cfg.use_sigmoid, tile_n=tile_n)
+            model, use_sigmoid=cfg.use_sigmoid, tile_n=tile_n, group=group,
+            interleave=interleave)
         self.spec = self.fused.spec
         off, p_len = self.spec.offsets()
         wd = packed_weight_decay(self.spec.field_shapes(),
@@ -137,10 +139,10 @@ def make_grouped_fused_fit_fn(model, cfg: FitConfig, group: int,
     images share one kernel call per step, and the plateau scheduler and
     NaN guard act on the MEAN loss of the group (one LR for the group).
     Per-image losses come back in ``aux['loss_hist']`` (steps, G).
-    ``interleave=True`` (a TPU schedule) is not ported yet and raises."""
-    if interleave:
-        raise NotImplementedError("interleave=True is not ported yet")
-    eng = _FlatFit(model, cfg, tile_n)
+    ``interleave=True`` (``group >= 2``) is the JAX package's TPU schedule
+    of the same function; here it runs the same grouped kernel (see
+    ``ops.flagship.make_flagship_loss_grad``)."""
+    eng = _FlatFit(model, cfg, tile_n, group, interleave)
 
     def fit(stacked_params, points, stacked_targets, active=True,
             point_masks=None):

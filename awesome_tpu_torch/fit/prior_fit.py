@@ -19,6 +19,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
+from awesome_tpu_torch.core import grids as G
 from awesome_tpu_torch.core import tree as T
 from awesome_tpu_torch.fit import optim
 from awesome_tpu_torch.measures.losses import unaries_weight
@@ -266,13 +267,11 @@ def fit_prior(model, params: Params, points: torch.Tensor,
     return make_fit_fn(model, cfg, loss_fn)(params, points, target_points)
 
 
-def _gate_iou(model, params, points, target_points, cfg: FitConfig,
+def _gate_iou(out, target_points, cfg: FitConfig,
               point_mask=None) -> torch.Tensor:
-    """Acceptance IoU of the thresholded prior against the thresholded
-    unaries, scored on foreground (fg encoded as 0, hence the inversion).
-    Padded points count as agreeing background."""
-    with torch.no_grad():
-        out = model.apply(params, points)
+    """Acceptance IoU of the thresholded prior output ``out`` against the
+    thresholded unaries, scored on foreground (fg encoded as 0, hence the
+    inversion). Padded points count as agreeing background."""
     prob = torch.sigmoid(out) if cfg.use_sigmoid else out
     target = target_points
     if point_mask is not None:
@@ -303,10 +302,15 @@ def make_gate_retry_fn(model, cfg: FitConfig, per_image_points: bool = False,
         per_image_points, loss_fn)
 
     def scores_of(stacked, points, targets, point_masks):
+        # the whole batch's outputs in one vmapped apply (one launch of a
+        # fused ICNN kernel), then each image's IoU
+        with torch.no_grad():
+            outs = torch.func.vmap(
+                model.apply, in_dims=(0, 0 if per_image_points else None))(
+                    stacked, points)
         return torch.stack([
-            _gate_iou(model, T.tree_select(stacked, b),
-                      points[b] if per_image_points else points, targets[b],
-                      cfg, None if point_masks is None else point_masks[b])
+            _gate_iou(outs[b], targets[b], cfg,
+                      None if point_masks is None else point_masks[b])
             for b in range(targets.shape[0])
         ])
 
@@ -380,3 +384,221 @@ def fit_priors_batched(model, stacked_params: Params, points: torch.Tensor,
                               loss_fn=loss_fn)
     return run(stacked_params, points, stacked_targets, valid_mask=valid_mask,
                retry_keys=retry_keys, point_masks=point_masks)
+
+
+def _flat_keys(retry_keys) -> list:
+    """(B, K) retry keys (a tensor, an array or nested sequences of seeds
+    or generators) -> a flat list of B*K keys."""
+    if hasattr(retry_keys, "reshape"):
+        return list(retry_keys.reshape(-1).tolist())
+    return [k for row in retry_keys for k in row]
+
+
+def fit_multi_object_priors(child_model, stacked_children: Params,
+                            points: torch.Tensor,
+                            per_object_targets: torch.Tensor, cfg: FitConfig,
+                            retry_keys: Optional[Sequence] = None,
+                            valid_mask: Optional[torch.Tensor] = None,
+                            loss_fn: Optional[Callable] = None,
+                            point_masks: Optional[torch.Tensor] = None
+                            ) -> Tuple[Params, dict]:
+    """Fit K objects per image at once: the (image x object) axes flatten
+    into one batch for the batched engine. ``stacked_children`` carries
+    leading (B, K) axes, ``points`` are shared (N, C) or per image
+    (B, N, C), ``per_object_targets`` (B, K, N, 1), ``retry_keys`` and
+    ``valid_mask`` (B, K) (inactive slots pass through), ``point_masks``
+    (B, N). Returns the fitted (B, K, ...) tree and aux reshaped to
+    (B, K, ...)."""
+    b, k = per_object_targets.shape[:2]
+
+    def flat(x):
+        return x.reshape((b * k,) + tuple(x.shape[2:]))
+
+    pts = points.repeat_interleave(k, dim=0) if points.ndim == 3 else points
+    fitted, aux = fit_priors_batched(
+        child_model, T.tree_map(flat, stacked_children), pts,
+        flat(per_object_targets), cfg,
+        retry_keys=None if retry_keys is None else _flat_keys(retry_keys),
+        valid_mask=None if valid_mask is None else torch.as_tensor(
+            valid_mask, device=per_object_targets.device).reshape(b * k),
+        loss_fn=loss_fn,
+        point_masks=None if point_masks is None else
+        point_masks.repeat_interleave(k, dim=0))
+    unflat = T.tree_map(lambda x: x.reshape((b, k) + tuple(x.shape[1:])),
+                        fitted)
+    aux = {key: (v.reshape((b, k) + tuple(v.shape[1:]))
+                 if isinstance(v, torch.Tensor) and v.shape[:1] == (b * k,)
+                 else v)
+           for key, v in aux.items()}
+    return unflat, aux
+
+
+def make_sequential_fit_fn(model, cfg: FitConfig,
+                           warm_cfg: Optional[FitConfig] = None,
+                           loss_fn: Optional[Callable] = None) -> Callable:
+    """Build the sequential (reuse_state) fit ``fit(init_params, points,
+    stacked_targets, valid_mask=None, point_masks=None) -> (stacked_params,
+    aux)``: image 0 gets a cold fit of ``cfg.num_steps``; each later image
+    starts from the previous carry for ``warm_cfg.num_steps`` (default
+    200). An invalid image's fit runs with ``active=False``, so its output
+    slot holds the carry unchanged, and the carry passes through it. The
+    images are a Python loop; no step waits on the host."""
+    warm_cfg = warm_cfg or dataclasses.replace(cfg, num_steps=200)
+    cold_fit = make_fit_fn(model, cfg, loss_fn)
+    warm_fit = make_fit_fn(model, warm_cfg, loss_fn)
+
+    def fit(init_params, points, stacked_targets, valid_mask=None,
+            point_masks=None):
+        batch = stacked_targets.shape[0]
+        dev = stacked_targets.device
+        valid = (torch.ones((batch,), dtype=torch.bool, device=dev)
+                 if valid_mask is None
+                 else torch.as_tensor(valid_mask, device=dev))
+
+        def args(b):
+            pts = points[b] if points.ndim == 3 else points
+            mask = None if point_masks is None else point_masks[b]
+            return pts, stacked_targets[b], valid[b], mask
+
+        carry, aux0 = cold_fit(init_params, *args(0))
+        outs, scales = [carry], []
+        for b in range(1, batch):
+            fitted, aux = warm_fit(carry, *args(b))
+            carry = T.tree_where(valid[b], fitted, carry)
+            outs.append(fitted)
+            scales.append(aux["lr_scale"])
+        rest = (torch.stack(scales) if scales
+                else torch.zeros((0,), device=dev))
+        return T.stack_trees(outs), {"first_aux": aux0,
+                                     "warm_lr_scale": rest}
+
+    return fit
+
+
+def fit_priors_sequential(model, init_params: Params, points: torch.Tensor,
+                          stacked_targets: torch.Tensor, cfg: FitConfig,
+                          warm_cfg: Optional[FitConfig] = None,
+                          valid_mask: Optional[torch.Tensor] = None,
+                          loss_fn: Optional[Callable] = None,
+                          point_masks: Optional[torch.Tensor] = None
+                          ) -> Tuple[Params, dict]:
+    """The sequential fit with warm-start carry (``reuse_state``): see
+    :func:`make_sequential_fit_fn`. Returns the stacked per-image fitted
+    params and aux."""
+    fit = make_sequential_fit_fn(model, cfg, warm_cfg, loss_fn)
+    return fit(init_params, points, stacked_targets, valid_mask, point_masks)
+
+
+# --- prefits -----------------------------------------------------------------
+
+
+def apply_prefits(model, params: Params, points: torch.Tensor,
+                  prefit_flow_identity: bool = False,
+                  flow_identity_lr: float = 1e-2,
+                  flow_identity_weight_decay: float = 1e-5,
+                  flow_identity_steps: int = 100,
+                  prefit_convex: bool = False, convex_mode: str = "circle",
+                  convex_target: Optional[torch.Tensor] = None,
+                  grid_shape: Optional[Tuple[int, int]] = None,
+                  convex_lr: float = 1e-3, convex_weight_decay: float = 0.0,
+                  convex_steps: int = 200, zoo=None,
+                  zoo_key: Optional[str] = None) -> Params:
+    """The warm-start prefits as one entry point: the flow towards the
+    identity on the grid, then the ICNN on a circle approximation or the
+    unaries. Models without ``flow_net``/``convex_net`` pass through
+    unchanged. The model zoo (the JAX package's cache of the flow prefit
+    under ``zoo_key``) is not ported: a ``zoo`` raises."""
+    del zoo_key
+    if zoo is not None:
+        raise NotImplementedError("the model zoo is not ported yet")
+    if not (hasattr(model, "flow_net") and hasattr(model, "convex_net")):
+        return params
+    if prefit_flow_identity:
+        params, _ = learn_flow_identity(
+            model, params, points, lr=flow_identity_lr,
+            weight_decay=flow_identity_weight_decay,
+            max_iter=flow_identity_steps)
+    if prefit_convex and convex_target is not None:
+        params, _ = learn_convex_net(
+            model, params, points, convex_target, mode=convex_mode,
+            grid_shape=grid_shape, lr=convex_lr,
+            weight_decay=convex_weight_decay, max_iter=convex_steps)
+    return params
+
+
+def _guarded_loop(loss_grad: Callable, params: Params, update: Callable,
+                  state, clip: Callable, steps: int):
+    """``steps`` optimizer steps that skip any step whose loss is not
+    finite; returns (params, loss history)."""
+    hist = []
+    for _ in range(steps):
+        grads, loss = loss_grad(params)
+        new_params, new_state = update(params, grads, state)
+        ok = torch.isfinite(loss)
+        params = T.tree_where(ok, clip(new_params), params)
+        state = T.tree_where(ok, new_state, state)
+        hist.append(loss)
+    return params, torch.stack(hist)
+
+
+def learn_flow_identity(model, params: Params, points: torch.Tensor,
+                        lr: float = 1e-2, weight_decay: float = 1e-5,
+                        max_iter: int = 100) -> Tuple[Params, torch.Tensor]:
+    """Prefit the flow (inside its norm wrap) to the identity on the grid:
+    SE between flow(x) and x, Adamax with weight decay and a NaN guard.
+    Returns the params with the new flow, and the loss history."""
+
+    def flow_apply(fp, x):
+        x_in = model.norm.transform(x) if model.norm is not None else x
+        y = model.flow_net.apply(fp, x_in)
+        return model.norm.inverse_transform(y) if model.norm is not None \
+            else y
+
+    def loss_fn(fp, x):
+        return torch.mean((flow_apply(fp, x) - x) ** 2)
+
+    gv = torch.func.grad_and_value(loss_fn)
+    wd = T.tree_map(lambda _: weight_decay, params["flow"])
+    flow, hist = _guarded_loop(
+        lambda fp: gv(fp, points), params["flow"],
+        lambda p, g, st: optim.adamax_update(p, g, st, lr, weight_decay=wd),
+        optim.adamax_init(params["flow"]), lambda p: p, max_iter)
+    return dict(params, flow=flow), hist
+
+
+def learn_convex_net(model, params: Params, points: torch.Tensor,
+                     target_points: torch.Tensor, mode: str = "circle",
+                     use_deformed_grid: bool = True,
+                     grid_shape: Optional[Tuple[int, int]] = None,
+                     lr: float = 1e-3, weight_decay: float = 0.0,
+                     max_iter: int = 200) -> Tuple[Params, torch.Tensor]:
+    """Prefit the ICNN, on the deformed grid (its gradient stopped), to a
+    circle with the unaries' fg area and center of mass (``mode='circle'``,
+    needs ``grid_shape``) or to the unaries themselves: SE on the sigmoid,
+    Adam, the convexity clip after each step, a NaN guard."""
+    if mode == "circle":
+        if grid_shape is None:
+            raise ValueError("grid_shape required for circle mode")
+        fg = 1.0 - target_points.reshape(grid_shape)  # fg encoded as 0
+        circle = G.unary_circle_approximation(fg)
+        y = (1.0 - circle.to(points.dtype)).reshape(-1, 1)
+    elif mode == "unaries":
+        y = target_points
+    else:
+        raise ValueError("Mode must be either 'circle' or 'unaries'!")
+    with torch.no_grad():
+        x = model.deformation(params, points) if use_deformed_grid \
+            else points
+
+    def loss_fn(cp, x_, y_):
+        prob = torch.sigmoid(model.convex_net.apply(cp, x_))
+        return torch.mean((prob - y_) ** 2)
+
+    gv = torch.func.grad_and_value(loss_fn)
+    wd = T.tree_map(lambda _: weight_decay, params["convex"])
+    convex, hist = _guarded_loop(
+        lambda cp: gv(cp, x, y), params["convex"],
+        lambda p, g, st: optim.adam_update(p, g, st, lr, weight_decay=wd),
+        optim.adam_init(params["convex"]),
+        model.convex_net.enforce_convexity, max_iter)
+    return dict(params, convex=convex), hist

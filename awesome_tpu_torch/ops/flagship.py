@@ -9,8 +9,8 @@ ICNN), in the JAX package's packed layout (``PACKED_FIELDS``).
 Two implementations of the same function:
 
 - the CUDA kernel ``csrc/flagship.cu`` (Hopper, ``sm_90a``), built with
-  ``nvcc`` on first use into ``build/awesome_tpu_torch/`` and bound with
-  ``ctypes``; it runs for tensors on a CUDA device;
+  ``nvcc`` on first use (``ops/build.py``) and bound with ``ctypes``; it
+  runs for tensors on a CUDA device;
 - :func:`flagship_loss_grad_plain`, the plain PyTorch version (autograd),
   which runs for tensors on the CPU and is the kernel's reference on the
   card.
@@ -22,12 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -36,6 +31,7 @@ import torch
 from awesome_tpu_torch.nn.flows import RealNVPFlow, binary_counting_masks
 from awesome_tpu_torch.nn.icnn import ConvexNextNet
 from awesome_tpu_torch.nn.path_connected import PathConnectedNet
+from awesome_tpu_torch.ops.build import Library, check
 
 Params = Any
 
@@ -340,53 +336,8 @@ def flagship_loss_grad_plain(spec: FlagshipSpec,
 
 # --- the CUDA kernel --------------------------------------------------------
 
-_CSRC = Path(__file__).resolve().parent / "csrc" / "flagship.cu"
-_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
-              / "awesome_tpu_torch")
-_LIB: Dict[str, ctypes.CDLL] = {}
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the flagship kernel")
-
-
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def build_library(extra_flags: Tuple[str, ...] = ()) -> Path:
-    """Compile ``csrc/flagship.cu`` for ``sm_90a`` into a shared library and
-    return its path. The file is named after a hash of the source text and
-    the compiler flags, so a build is reused only for the same source and
-    flags. The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside it in ``<name>.build.log``."""
-    flags = NVCC_FLAGS + tuple(extra_flags)
-    digest = hashlib.sha1(_CSRC.read_bytes())
-    digest.update("\0".join(flags).encode())
-    out = _BUILD_DIR / f"libflagship-{digest.hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    res = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(_CSRC)],
-                         capture_output=True, text=True)
-    out.with_suffix(".build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-def load_library(path: Path) -> ctypes.CDLL:
-    """Load a build of the kernel and declare its C entry points."""
-    lib = ctypes.CDLL(str(path))
+def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.flagship_loss_grad.argtypes = [vp] * 8 + [i] * 13 + [vp]
     lib.flagship_loss_grad.restype = i
@@ -396,18 +347,9 @@ def load_library(path: Path) -> ctypes.CDLL:
     lib.flagship_device_limits.restype = i
     lib.flagship_blocks_per_sm.argtypes = [i] * 3
     lib.flagship_blocks_per_sm.restype = i
-    return lib
 
 
-def _library() -> ctypes.CDLL:
-    if "lib" not in _LIB:
-        _LIB["lib"] = load_library(build_library())
-    return _LIB["lib"]
-
-
-def _check(code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what} failed with CUDA error {code}")
+LIBRARY = Library("flagship.cu", _declare)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -427,12 +369,12 @@ def launch_shape(spec: FlagshipSpec, n: int, group: int,
     block; by default the blocks of all images fill one wave of the card.
     The result depends only on the shapes and the card, so two calls on the
     same inputs reduce in the same order (bitwise equal results)."""
-    lib = _library()
+    lib = LIBRARY.get()
     dev = device.index if device.index is not None else \
         torch.cuda.current_device()
     max_smem, sms = ctypes.c_int(), ctypes.c_int()
-    _check(lib.flagship_device_limits(dev, ctypes.byref(max_smem),
-                                      ctypes.byref(sms)), "device query")
+    check(lib.flagship_device_limits(dev, ctypes.byref(max_smem),
+                                     ctypes.byref(sms)), "device query")
     dims = (spec.n_flows, spec.hidden, spec.icnn_w, spec.n_layers)
     for tp in (64, 32):
         smem = lib.flagship_smem_bytes(tp, *dims)
@@ -473,7 +415,7 @@ def flagship_loss_grad_cuda(spec: FlagshipSpec, flat: torch.Tensor,
                              f"{tuple(t.shape)}")
     if dev.type != "cuda":
         raise ValueError("the flagship kernel takes CUDA tensors only")
-    lib = _library()
+    lib = LIBRARY.get()
     partials = torch.empty((g, shape.n_tiles, p_len + 1), device=dev)
     out = torch.empty((g, p_len + 1), device=dev)
     offsets = np.array([off[k] for k in PACKED_FIELDS] + [p_len], np.int32)
@@ -489,7 +431,7 @@ def flagship_loss_grad_cuda(spec: FlagshipSpec, flat: torch.Tensor,
         n, g, spec.n_flows, spec.hidden, spec.icnn_w, spec.n_layers,
         int(spec.use_tanh), int(use_sigmoid), shape.tp, shape.smem,
         shape.chunks, shape.n_tiles, stream)
-    _check(code, "flagship kernel launch")
+    check(code, "flagship kernel launch")
     flagship_loss_grad_cuda.launches += 1
     return out
 
@@ -559,13 +501,18 @@ def make_flagship_loss_grad(model, use_sigmoid: bool = True,
     (G, N, 1) with ``group`` = G > 1, where the packed buffers carry a
     leading image axis and the points are shared; the loss is then (G,).
     ``tile_n`` is only a hint for the points each CUDA block takes.
-    ``interleave`` and ``use_bf16`` (TPU schedules and bf16 matmul
-    inputs) are not ported yet and raise."""
+
+    ``interleave`` (group > 1 only) selects the JAX package's
+    ``_kernel_interleaved``, which computes the same function as the
+    grouped ``_kernel`` on a schedule made for the TPU: it alternates the
+    images' matrix-unit chains inside one sequential program and recomputes
+    activations to fit VMEM. On the card the images are already separate
+    blocks that run concurrently, and the kernel already recomputes the
+    flow's hidden layer, so it is served by the same grouped kernel.
+    ``use_bf16`` (bf16 matmul inputs) is not ported yet and raises."""
     spec = FlagshipSpec.of(model)
     if interleave and group < 2:
         raise ValueError("interleave requires group >= 2")
-    if interleave:
-        raise NotImplementedError("interleave=True is not ported yet")
     if use_bf16:
         raise NotImplementedError("use_bf16=True is not ported yet")
     spec.coupling_masks()

@@ -5,27 +5,55 @@
 
 Phases, each printing its own line (any failure exits nonzero):
 
-1. the card's name and power limit (``nvidia-smi``), then the build of
-   ``awesome_tpu_torch/ops/csrc/flagship.cu`` with nvcc for sm_90a (into
-   ``build/awesome_tpu_torch/``) and its time;
-2. the fused loss+grad kernel against its plain PyTorch version on the
-   card: the bench model (flow 32x12, ICNN 130x2) and the factory default
-   (flow 130x6, ICNN 130x2), and the bench model with a third ICNN layer
-   (the kernel's 32-point instantiation); N = 64*64 and a ragged 4097,
-   G = 1 and G = 2 with distinct params and targets per image; loss rtol
-   1e-5, grads rtol 5e-4 atol 1e-6; two launches bitwise equal;
-3. the main path: ``make_fit_fn(model, FitConfig(fused=True, ...))`` with
-   the bench model at 480x640 on an ellipse target; the kernel's launch
-   count must equal the steps, every loss be finite and the last below the
-   first; prints ms/step, point-steps/s and the IoU of the fitted mask;
-4. the batched fused fit: ``make_batched_fit_fn`` on 8 images at 64x64
-   with the IoU gate (threshold 0.5) and retry; prints gate IoUs and time;
-5. a ``kernels`` JSON line: per kernel its time at the path's shape, its
-   launches on its path, the steps that path ran and the launches per
-   step, its bound on this card, the plain version's time, and its error
-   against the plain version at that shape;
-6. the card's name and power limit, and last the result line
-   ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+1. the card's name and power limit (``nvidia-smi``), then the builds of
+   ``awesome_tpu_torch/ops/csrc/flagship.cu`` (K1/K2) and ``icnn.cu``
+   (K4/K5) with nvcc for sm_90a, side by side (into
+   ``build/awesome_tpu_torch/``), each with its time and its ptxas
+   register and spill lines;
+2. the fused flagship loss+grad kernel against its plain PyTorch version:
+   the bench model (flow 32x12, ICNN 130x2), the factory default (flow
+   130x6, ICNN 130x2), and the bench model with a third ICNN layer (the
+   kernel's 32-point instantiation); N = 64*64 and a ragged 4097, G = 1
+   and 2; loss rtol 1e-5, grads rtol 5e-4 atol 1e-6; two launches bitwise
+   equal;
+3. the ICNN kernels K4 and K5 against their plain versions for the five
+   ICNN shapes the port serves, N = 4096 and 4097, G = 1 and G = 3 with
+   shared and with per-image points: y rtol 1e-5 (atol 1e-6 of max|y|, y
+   crosses 0), dx and weight grads rtol 5e-4, atol 1e-6 of the largest
+   grad (the kernels sum in another order than cuBLAS); two K5 launches
+   bitwise equal; ``FusedConvexNextNet`` (K4 and the plain VJP) grads
+   against the plain model's;
+4. K3, ``interleave=True``: the grouped loss+grad against the plain
+   version (phase-2 tolerances), then a short grouped fit that must equal
+   the ``interleave=False`` fit bitwise, with launches = steps;
+5. the flagship main path: ``make_fit_fn(model, FitConfig(fused=True))``
+   with the bench model at 480x640 on an ellipse target; launches = steps,
+   finite and decreasing loss; ms/step, point-steps/s and IoU;
+6. the batched fused flagship fit, 8 images at 64x64 with the IoU gate
+   and retry;
+7. the convex main path: ``fit_prior(FullyFusedConvexNextNet(
+   ConvexNextNet()), ...)`` at 480x640 with the how-to config (Adam, lr
+   2e-3, fg_weight 0.4, 2000 steps); K4 = K5 = steps, finite and
+   decreasing loss, ms/step, point-steps/s, IoU, and a convexity check of
+   the fitted mask (midpoints of fg pairs are fg);
+8. the batched convex fit, 8 images at 128x128 with the gate and retry:
+   one K5 launch per step for the whole batch, and one K4 per step plus
+   one per gate pass;
+9. the sequential reuse-state pretrain (4 images at 64x64, one invalid,
+   point masks): (a) the bench model with the flow-identity and convex
+   prefits and the fused fit (K1), (b) ``FullyFusedConvexNextNet``
+   (K4/K5); cold fit 500 steps, warm fits 200; launches and IoUs;
+10. a ``kernels`` JSON line: per kernel (K1-K5) its time at its path's
+    shape, its launches on that path, the steps, launches per step, its
+    bound on this card, the plain version's time, and its error against
+    the plain version at that shape;
+11. the card's name and power limit, and last the result line
+    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+
+Phases 5-8 also profile a 20-step window of their fit with
+``torch.profiler``: the device's busy ms per step (the sum of its kernels'
+device time), its idle share against the unprofiled ms/step, and the
+kernels that take the most device time.
 
 Without CUDA it exits nonzero and prints no result.
 """
@@ -46,6 +74,8 @@ PEAK_BYTES_PER_S = 3.35e12
 
 LOSS_RTOL = 1e-5
 STEPS = 2000  # steps of each fit, the protocol's per-image count
+K3_STEPS = 200  # steps of the short interleaved grouped fit
+PROF_STEPS = 20  # steps of each profiled window
 GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-6
 
 
@@ -91,13 +121,15 @@ def default_model(shape, device):
                                        spatial_shape=shape, device=device)
 
 
-def ellipse_target(h: int, w: int, device):
-    """The bench's target: fg (encoded 0) inside an axis-aligned ellipse."""
+def ellipse_target(h: int, w: int, device, shift=(0.0, 0.0)):
+    """The bench's target: fg (encoded 0) inside an axis-aligned ellipse,
+    its center moved by ``shift`` (fractions of the height and width)."""
     import torch
 
     yy, xx = np.mgrid[0:h, 0:w]
-    fg = (((yy - h / 2) ** 2 / (0.09 * h * h)
-           + (xx - w / 2) ** 2 / (0.05 * w * w)) <= 1.0)
+    cy, cx = h * (0.5 + shift[0]), w * (0.5 + shift[1])
+    fg = (((yy - cy) ** 2 / (0.09 * h * h)
+           + (xx - cx) ** 2 / (0.05 * w * w)) <= 1.0)
     return torch.tensor(1.0 - fg.astype(np.float32),
                         device=device).reshape(-1, 1)
 
@@ -141,11 +173,13 @@ def loss_grad_inputs(model, n: int, g: int, seed: int, device):
         wts.reshape(g, n).contiguous()
 
 
-def kernel_vs_plain(model, n: int, g: int, seed: int, device) -> float:
+def kernel_vs_plain(model, n: int, g: int, seed: int, device,
+                    f=None) -> float:
     """Kernel against the plain version on the same inputs; returns the
     largest absolute error over loss and grads. Raises on a mismatch or
     when two launches differ in any bit. Launches made here are taken out
-    of the kernel's launch count again."""
+    of the kernel's launch count again. ``f``: the loss+grad to check (by
+    default the grouped one of ``model``)."""
     import torch
 
     from awesome_tpu_torch.ops.flagship import (
@@ -157,7 +191,7 @@ def kernel_vs_plain(model, n: int, g: int, seed: int, device) -> float:
     )
 
     spec, flat, pts, tgt, wts = loss_grad_inputs(model, n, g, seed, device)
-    f = FlagshipLossGrad(spec, True, g, None)
+    f = f or FlagshipLossGrad(spec, True, g, None)
     before = flagship_loss_grad_cuda.launches
     loss_k, grads_k = f.flat(flat, pts, tgt, wts)
     loss_k2, grads_k2 = f.flat(flat, pts, tgt, wts)
@@ -243,6 +277,37 @@ def kernel_entry(name, replaces, model, n, g, seed, launches, steps, reps,
     }
 
 
+def device_profile(run, steps: int, ms_per_step: float) -> dict:
+    """Where a fit's step time goes: ``run()`` drives ``steps`` fit steps
+    under ``torch.profiler``; the device's busy time is the sum of the
+    device time of every kernel (one stream, so they do not overlap). ``ms_per_step`` (the unprofiled run's) gives the
+    device's idle share. Reports "not measured" where the profiler sees no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm-up at this step count
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    # kernels only: an op's own row repeats the device time of its kernels
+    rows = [(e.key, float(e.self_device_time_total))
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(t for _, t in rows)
+    if busy_us <= 0.0:
+        return {"device_busy_ms_per_step": "not measured"}
+    busy = busy_us / 1e3 / steps
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    return {
+        "profiled_steps": steps, "device_busy_ms_per_step": busy,
+        "device_idle_share": max(0.0, 1.0 - busy / ms_per_step),
+        "top_device_ms_per_step": {k: t / 1e3 / steps for k, t in top},
+    }
+
+
 def main_path(steps: int, device):
     """The flagship fused prior fit at 480x640 (bench model)."""
     import torch
@@ -288,12 +353,15 @@ def main_path(steps: int, device):
     with torch.no_grad():
         prob = torch.sigmoid(model.apply(fitted, pts))
     score = float(iou(prob > 0.5, target > 0.5, invert=True))
+    short = make_fit_fn(model, dataclasses.replace(cfg, num_steps=PROF_STEPS))
     return model, launches, ran, {
         "phase": "main_path", "shape": [h, w], "steps": ran,
         "seconds": dt, "ms_per_step": 1e3 * dt / steps,
         "point_steps_per_s": steps * pts.shape[0] / dt,
         "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
         "iou": score, "kernel_launches": launches,
+        "profile": device_profile(lambda: short(params, pts, target),
+                                  PROF_STEPS, 1e3 * dt / steps),
     }
 
 
@@ -335,13 +403,496 @@ def batched_path(steps: int, device):
     if not np.isfinite(hist).all():
         raise AssertionError("non-finite loss in the batched fit")
     gate = aux["gate_iou"].cpu().numpy()
+    short = make_batched_fit_fn(model, dataclasses.replace(
+        cfg, num_steps=PROF_STEPS, gate_threshold=None))
     return model, launches, ran, {
         "phase": "batched_path", "images": batch, "shape": [h, w],
         "steps": ran, "seconds": dt,
         "point_steps_per_s": launches * batch * pts.shape[0] / dt,
         "gate_iou": [float(v) for v in gate],
         "gate_pass": int((gate >= 0.5).sum()), "kernel_launches": launches,
+        "profile": device_profile(lambda: short(stacked, pts, targets),
+                                  PROF_STEPS, 1e3 * dt / ran),
     }
+
+# (what it serves, width, hidden layers, in_features) of the ICNNs the
+# fused ICNN kernels take
+ICNN_CONFIGS = (
+    ("runner default and how-to", 130, 1, 2),
+    ("flagship ICNN", 130, 2, 2),
+    ("convex teaser", 150, 1, 2),
+    ("space-time teaser", 50, 1, 3),
+    ("multi-object child", 64, 1, 2),
+)
+
+
+def icnn_inputs(width, layers, c, n, g, per_image, seed, device):
+    """An ICNN, its stacked params (G images), their (G, P) rows, points
+    (N, C) or (G, N, C), and an upstream grad (G, N)."""
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.ops import mlp
+
+    base = ConvexNextNet(n_hidden=width, in_features=c,
+                         n_hidden_layers=layers, device=device)
+    stacked = T.stack_trees([perturbed_params(base, seed + i)
+                             for i in range(g)])
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((g, n, c) if per_image else (n, c), generator=gen)
+    gy = torch.randn((g, n), generator=gen)
+    return (mlp.IcnnSpec.of(base), base, stacked,
+            mlp.pack_rows(mlp.flat_weights(stacked), g), x.to(device),
+            gy.to(device))
+
+
+def icnn_vs_plain(width, layers, c, n, g, per_image, seed, device):
+    """K4 and K5 against the plain versions on the same inputs; returns
+    the largest absolute errors (forward, backward). Raises on a mismatch
+    or when two K5 launches differ in any bit. The launches made here are
+    taken out of the launch counts again."""
+    import torch
+
+    from awesome_tpu_torch.ops import mlp
+
+    spec, _, stacked, flat, x, gy = icnn_inputs(width, layers, c, n, g,
+                                                per_image, seed, device)
+    before = mlp.icnn_forward_cuda.launches, mlp.icnn_backward_cuda.launches
+    y = mlp.icnn_forward_cuda(spec, flat, x)
+    dp, dx = mlp.icnn_backward_cuda(spec, flat, x, gy)
+    dp2, dx2 = mlp.icnn_backward_cuda(spec, flat, x, gy)
+    mlp.icnn_forward_cuda.launches, mlp.icnn_backward_cuda.launches = before
+    ref_y = mlp.icnn_forward_plain(stacked, x)[..., 0]
+    ref_tree, ref_dx = mlp.icnn_backward_plain(stacked, x, gy[..., None])
+    ref_dp = mlp.pack_rows(mlp.flat_weights(ref_tree), g)
+    torch.cuda.synchronize()
+    if not (torch.equal(dp, dp2) and torch.equal(dx, dx2)):
+        raise AssertionError("two K5 launches on the same inputs differ")
+    errs = []
+    for got, ref, rtol in ((y, ref_y, LOSS_RTOL), (dp, ref_dp, GRAD_RTOL),
+                           (dx, ref_dx, GRAD_RTOL)):
+        got, ref = got.cpu().numpy(), ref.cpu().numpy()
+        if not np.isfinite(got).all():
+            raise AssertionError("non-finite ICNN kernel output")
+        np.testing.assert_allclose(got, ref, rtol=rtol,
+                                   atol=1e-6 * np.abs(ref).max())
+        errs.append(float(np.abs(got - ref).max()))
+    return errs[0], max(errs[1:])
+
+
+def fused_vjp_vs_plain(width, layers, c, n, seed, device) -> float:
+    """``FusedConvexNextNet`` (K4, then the plain VJP) grads of an SE loss
+    against the plain ConvexNextNet's; returns the largest error."""
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.ops import mlp
+
+    _, base, stacked, _, x, _ = icnn_inputs(width, layers, c, n, 1, False,
+                                            seed, device)
+    params = T.tree_select(stacked, 0)
+    tgt = (x[:, :1] > 0.5).float()
+
+    def loss(model):
+        return lambda p: torch.mean((torch.sigmoid(model.apply(p, x))
+                                     - tgt) ** 2)
+
+    before = mlp.icnn_forward_cuda.launches
+    got = torch.func.grad(loss(mlp.FusedConvexNextNet(base)))(params)
+    launched = mlp.icnn_forward_cuda.launches - before
+    mlp.icnn_forward_cuda.launches = before
+    ref = torch.func.grad(loss(base))(params)
+    if launched != 1:
+        raise AssertionError(f"FusedConvexNextNet launched K4 {launched} "
+                             "times for one grad")
+    err = 0.0
+    for a, b in zip(T.tree_leaves(got), T.tree_leaves(ref)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=GRAD_RTOL,
+                                   atol=1e-6 * np.abs(b).max())
+        err = max(err, float(np.abs(a - b).max()))
+    return err
+
+
+def icnn_checks(device) -> None:
+    t0 = time.perf_counter()
+    for what, width, layers, c in ICNN_CONFIGS:
+        for n in (4096, 4097):
+            for g, per_image in ((1, False), (3, False), (3, True)):
+                ef, eb = icnn_vs_plain(width, layers, c, n, g, per_image,
+                                       width + n % 7 + g, device)
+                print(json.dumps({
+                    "phase": "icnn_vs_plain", "icnn": what, "width": width,
+                    "layers": layers, "in_features": c, "n": n, "g": g,
+                    "points": "per_image" if per_image else "shared",
+                    "max_abs_err_fwd": ef, "max_abs_err_bwd": eb,
+                    "bitwise_repeat": True}), flush=True)
+        err = fused_vjp_vs_plain(width, layers, c, 4097, width, device)
+        print(json.dumps({"phase": "fused_vjp_vs_plain", "icnn": what,
+                          "max_abs_err": err}), flush=True)
+    print(f"icnn_vs_plain: ok in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def k3_path(steps: int, device):
+    """K3, ``interleave=True``: the grouped loss+grad against the plain
+    version, then a grouped fit that must equal ``interleave=False``."""
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.fused_fit import make_grouped_fused_fit_fn
+    from awesome_tpu_torch.fit.prior_fit import FitConfig, run_fit_loop
+    from awesome_tpu_torch.ops.flagship import (
+        flagship_loss_grad_cuda,
+        make_flagship_loss_grad,
+    )
+
+    h = w = 64
+    model = bench_model((h, w), device)
+    f = make_flagship_loss_grad(model, group=2, interleave=True)
+    errs = [kernel_vs_plain(model, n, 2, 40 + n % 7, device, f=f)
+            for n in (4096, 4097)]
+    pts = G.flatten_grid(G.pixel_grid((h, w), device=device))
+    targets = torch.stack([ellipse_target(h, w, device, (0.1 * i, -0.1 * i))
+                           for i in range(2)])
+    stacked = T.stack_trees([model.init(torch.Generator().manual_seed(30 + i))
+                             for i in range(2)])
+    cfg = FitConfig(num_steps=steps, lr=1e-3, nan_guard_grads=False)
+    fit_i = make_grouped_fused_fit_fn(model, cfg, group=2, interleave=True)
+    fit_p = make_grouped_fused_fit_fn(model, cfg, group=2)
+    torch.cuda.synchronize()
+    flagship_loss_grad_cuda.launches = run_fit_loop.steps = 0
+    got, aux = fit_i(stacked, pts, targets)
+    torch.cuda.synchronize()
+    launches, ran = flagship_loss_grad_cuda.launches, run_fit_loop.steps
+    if ran != steps or launches != steps:
+        raise AssertionError(f"interleaved fit: {launches} launches in "
+                             f"{ran} steps")
+    ref, ref_aux = fit_p(stacked, pts, targets)
+    torch.cuda.synchronize()
+    same = torch.equal(aux["loss_hist"], ref_aux["loss_hist"]) and all(
+        torch.equal(a, b) for a, b in zip(T.tree_leaves(got),
+                                          T.tree_leaves(ref)))
+    if not same:
+        raise AssertionError("interleave=True differs from interleave=False")
+    return model, launches, ran, {
+        "phase": "k3_interleave", "g": 2, "shape": [h, w],
+        "max_abs_err_4096": errs[0], "max_abs_err_4097": errs[1],
+        "steps": ran, "kernel_launches": launches,
+        "bitwise_equal_to_interleave_false": True,
+    }
+
+
+def counts():
+    """(K1/K2 launches, K4 launches, K5 launches, fit steps)."""
+    from awesome_tpu_torch.fit.prior_fit import run_fit_loop
+    from awesome_tpu_torch.ops import mlp
+    from awesome_tpu_torch.ops.flagship import flagship_loss_grad_cuda
+
+    return (flagship_loss_grad_cuda.launches, mlp.icnn_forward_cuda.launches,
+            mlp.icnn_backward_cuda.launches, run_fit_loop.steps)
+
+
+def zero_counts() -> None:
+    from awesome_tpu_torch.fit.prior_fit import run_fit_loop
+    from awesome_tpu_torch.ops import mlp
+    from awesome_tpu_torch.ops.flagship import flagship_loss_grad_cuda
+
+    flagship_loss_grad_cuda.launches = run_fit_loop.steps = 0
+    mlp.icnn_forward_cuda.launches = mlp.icnn_backward_cuda.launches = 0
+
+
+def check_hist(hist, what: str) -> None:
+    if not np.isfinite(hist).all():
+        raise AssertionError(f"non-finite loss in {what}")
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"{what}: loss did not decrease: {hist[0]} -> "
+                             f"{hist[-1]}")
+
+
+def convexity_check(model, params, pts, seed: int) -> dict:
+    """Midpoints of random pairs of fg points (fg is f < 0) must be fg:
+    f convex gives f(mid) <= (f(a) + f(b)) / 2. Checked with a rounding
+    slack of 1e-4 * (1 + max|f|); any larger excess means the convexity
+    clip or the kernel is wrong."""
+    import torch
+
+    with torch.no_grad():
+        f = model.apply(params, pts)[:, 0]
+        fg = torch.nonzero(f < 0)[:, 0]
+        if fg.numel() < 2:
+            raise AssertionError("the fitted mask has no foreground")
+        gen = torch.Generator().manual_seed(seed)
+        i = fg[torch.randint(fg.numel(), (8192,), generator=gen)
+               .to(fg.device)]
+        j = fg[torch.randint(fg.numel(), (8192,), generator=gen)
+               .to(fg.device)]
+        mid = 0.5 * (pts[i] + pts[j])
+        f_mid = model.apply(params, mid)[:, 0]
+    avg = 0.5 * (f[i] + f[j])
+    slack = 1e-4 * (1.0 + float(f.abs().max()))
+    excess = float((f_mid - avg).max())
+    fg_mid = int((f_mid < 0).sum())
+    if excess > slack or not bool((f_mid < 0)[avg < -slack].all()):
+        raise AssertionError(f"fitted mask not convex: excess {excess}, "
+                             f"slack {slack}")
+    return {"pairs": 8192, "midpoints_fg": fg_mid, "max_excess": excess,
+            "slack": slack}
+
+
+def convex_path(steps: int, device):
+    """The convex prior fit at 480x640 through K4 and K5."""
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.fit.prior_fit import FitConfig, fit_prior
+    from awesome_tpu_torch.measures.metrics import iou
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.ops.mlp import FullyFusedConvexNextNet
+
+    h, w = 480, 640
+    model = FullyFusedConvexNextNet(ConvexNextNet(device=device))
+    pts = G.flatten_grid(G.pixel_grid((h, w), device=device))
+    target = ellipse_target(h, w, device)
+    params = model.init(torch.Generator().manual_seed(5))
+    cfg = FitConfig(num_steps=steps, lr=2e-3, optimizer="adam",
+                    fg_weight=0.4, plateau_patience=10 ** 6)
+    # warm-up: loads the kernels and picks their launch shapes
+    fit_prior(model, params, pts, target,
+              dataclasses.replace(cfg, num_steps=2))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    fitted, aux = fit_prior(model, params, pts, target, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _, k4, k5, ran = counts()
+    if not k4 == k5 == ran == steps:
+        raise AssertionError(f"convex fit: K4 {k4}, K5 {k5} launches in "
+                             f"{ran} steps")
+    hist = aux["loss_hist"].cpu().numpy()
+    check_hist(hist, "the convex fit")
+    with torch.no_grad():
+        prob = torch.sigmoid(model.apply(fitted, pts))
+    score = float(iou(prob > 0.5, target > 0.5, invert=True))
+    convex = convexity_check(model, fitted, pts, 6)
+    short = dataclasses.replace(cfg, num_steps=PROF_STEPS)
+    return k4, k5, ran, {
+        "phase": "convex_path", "shape": [h, w], "steps": ran,
+        "seconds": dt, "ms_per_step": 1e3 * dt / steps,
+        "point_steps_per_s": steps * pts.shape[0] / dt,
+        "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+        "iou": score, "k4_launches": k4, "k5_launches": k5,
+        "convexity": convex,
+        "profile": device_profile(
+            lambda: fit_prior(model, params, pts, target, short),
+            PROF_STEPS, 1e3 * dt / steps),
+    }
+
+
+def batched_convex_path(steps: int, device):
+    """8 convex fits at 128x128 at once, with the gate and retry."""
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.prior_fit import FitConfig, make_batched_fit_fn
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.ops.mlp import FullyFusedConvexNextNet
+
+    h = w = 128
+    batch = 8
+    model = FullyFusedConvexNextNet(ConvexNextNet(device=device))
+    pts = G.flatten_grid(G.pixel_grid((h, w), device=device))
+    targets = torch.stack([
+        ellipse_target(h, w, device, (0.03 * i - 0.1, 0.1 - 0.03 * i))
+        for i in range(batch)])
+    stacked = T.stack_trees([model.init(torch.Generator().manual_seed(50 + i))
+                             for i in range(batch)])
+    cfg = FitConfig(num_steps=steps, lr=2e-3, optimizer="adam",
+                    fg_weight=0.4, gate_threshold=0.5)
+    run = make_batched_fit_fn(model, cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    _, aux = run(stacked, pts, targets, retry_keys=list(range(200, 208)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _, k4, k5, ran = counts()
+    # the fit and the retry pass, and one vmapped K4 per gate pass (the
+    # scores and the retry's scores)
+    if ran != 2 * steps or k5 != ran or k4 != ran + 2:
+        raise AssertionError(f"batched convex fit: K4 {k4}, K5 {k5} "
+                             f"launches in {ran} steps")
+    hist = aux["loss_hist"].cpu().numpy()
+    if not np.isfinite(hist).all():
+        raise AssertionError("non-finite loss in the batched convex fit")
+    gate = aux["gate_iou"].cpu().numpy()
+    short = make_batched_fit_fn(model, dataclasses.replace(
+        cfg, num_steps=PROF_STEPS, gate_threshold=None))
+    return k4, k5, ran, {
+        "phase": "batched_convex_path", "images": batch, "shape": [h, w],
+        "steps": ran, "seconds": dt, "ms_per_step": 1e3 * dt / ran,
+        "point_steps_per_s": ran * batch * pts.shape[0] / dt,
+        "gate_iou": [float(v) for v in gate],
+        "gate_pass": int((gate >= 0.5).sum()), "k4_launches": k4,
+        "k5_launches": k5, "k5_launches_per_step": k5 / ran,
+        "profile": device_profile(lambda: short(stacked, pts, targets),
+                                  PROF_STEPS, 1e3 * dt / ran),
+    }
+
+
+def sequential_path(kind: str, device):
+    """The runner's reuse-state pretrain on 4 images at 64x64 (image 2
+    invalid, 64 padded points per image): cold fit 500 steps, warm 200.
+    ``kind`` 'flagship': the bench model with the flow-identity and
+    convex ('unaries') prefits and the fused fit (K1); 'convex':
+    ``FullyFusedConvexNextNet`` (K4/K5)."""
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.prior_fit import (
+        FitConfig,
+        apply_prefits,
+        fit_priors_sequential,
+    )
+    from awesome_tpu_torch.measures.metrics import iou
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.ops.mlp import FullyFusedConvexNextNet
+
+    h = w = 64
+    b, pad, cold, warm = 4, 64, 500, 200
+    base = G.flatten_grid(G.pixel_grid((h, w), device=device))
+    pts = torch.stack([torch.cat([base, torch.full((pad, 2), 2.0 + i,
+                                                   device=device)])
+                       for i in range(b)])
+    targets = torch.stack([torch.cat([
+        ellipse_target(h, w, device, (0.05 * i, -0.05 * i)),
+        torch.zeros((pad, 1), device=device)]) for i in range(b)])
+    masks = torch.zeros((b, h * w + pad), dtype=torch.bool, device=device)
+    masks[:, :h * w] = True
+    valid = torch.tensor([True, True, False, True], device=device)
+    gen = torch.Generator().manual_seed(70)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    if kind == "flagship":
+        model = bench_model((h, w), device)
+        cfg = FitConfig(num_steps=cold, lr=1e-3, fused=True,
+                        nan_guard_grads=False)
+        params0 = apply_prefits(
+            model, model.init(gen), pts[0][masks[0]],
+            prefit_flow_identity=True, prefit_convex=True,
+            convex_mode="unaries", convex_target=targets[0][masks[0]])
+    else:
+        model = FullyFusedConvexNextNet(ConvexNextNet(device=device))
+        cfg = FitConfig(num_steps=cold, lr=2e-3, optimizer="adam",
+                        fg_weight=0.4)
+        params0 = model.init(gen)
+    fitted, aux = fit_priors_sequential(
+        model, params0, pts, targets, cfg,
+        warm_cfg=dataclasses.replace(cfg, num_steps=warm),
+        valid_mask=valid, point_masks=masks)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1, k4, k5, ran = counts()
+    want = cold + (b - 1) * warm
+    launched = k1 if kind == "flagship" else min(k4, k5)
+    if ran != want or launched != want or (kind == "convex" and k4 != k5):
+        raise AssertionError(f"sequential {kind}: K1 {k1}, K4 {k4}, K5 {k5} "
+                             f"launches in {ran} steps")
+    check_hist(aux["first_aux"]["loss_hist"].cpu().numpy(),
+               f"the sequential {kind} cold fit")
+    ious = []
+    with torch.no_grad():
+        for i in range(b):
+            out = model.apply(T.tree_select(fitted, i), pts[i][masks[i]])
+            ious.append(float(iou(torch.sigmoid(out) > 0.5,
+                                  targets[i][masks[i]] > 0.5, invert=True)))
+    return {
+        "phase": f"sequential_{kind}", "images": b, "shape": [h, w],
+        "valid": [bool(v) for v in valid.cpu()], "cold_steps": cold,
+        "warm_steps": warm, "steps": ran, "seconds": dt,
+        "launches": {"K1": k1, "K4": k4, "K5": k5}, "iou": ious,
+    }
+
+
+def icnn_bound_ms(spec, n: int, g: int, backward: bool) -> tuple:
+    """Least time the card needs for one K4 (or K5) call: the larger of
+    the FP32 operations (one pass over every matrix for K4, three for K5:
+    recompute, weight grads, data grads; 2 FLOP per MAC) at the FP32 peak,
+    and the bytes (points, upstream grads and params read once; outputs
+    written once) at the HBM rate."""
+    w, nl, c, p_len = spec.width, spec.n_layers, spec.in_features, \
+        spec.row_len
+    macs = c * w + nl * (w * w + c * w) + w + c
+    flops = 2.0 * (3.0 if backward else 1.0) * macs * n * g
+    if backward:
+        nbytes = 4.0 * (n * c + g * n + 2 * g * p_len + g * n * c)
+    else:
+        nbytes = 4.0 * (n * c + g * p_len + g * n)
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def icnn_entries(launches4, launches5, steps, reps, device) -> list:
+    """K4 and K5 at the convex main path's shape (480x640, width 130, one
+    hidden layer, G = 1): time, plain time, bound and error."""
+    from awesome_tpu_torch.ops import mlp
+
+    n = 480 * 640
+    ef, eb = icnn_vs_plain(130, 1, 2, n, 1, False, 13, device)
+    spec, _, stacked, flat, x, gy = icnn_inputs(130, 1, 2, n, 1, False, 13,
+                                                device)
+    before = mlp.icnn_forward_cuda.launches, mlp.icnn_backward_cuda.launches
+    ms4 = cuda_time_ms(lambda: mlp.icnn_forward_cuda(spec, flat, x), reps)
+    ms5 = cuda_time_ms(lambda: mlp.icnn_backward_cuda(spec, flat, x, gy),
+                       reps)
+    mlp.icnn_forward_cuda.launches, mlp.icnn_backward_cuda.launches = before
+    plain4 = cuda_time_ms(lambda: mlp.icnn_forward_plain(stacked, x), reps)
+    plain5 = cuda_time_ms(
+        lambda: mlp.icnn_backward_plain(stacked, x, gy[..., None]), reps)
+    out = []
+    for name, line, launches, ms, plain, err, bwd in (
+            ("icnn_forward (K4)", 65, launches4, ms4, plain4, ef, False),
+            ("icnn_backward (K5)", 186, launches5, ms5, plain5, eb, True)):
+        b_ms, b_by = icnn_bound_ms(spec, n, 1, bwd)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "awesome_tpu_torch/ops/csrc/icnn.cu",
+            "replaces": f"awesome_tpu/ops/pallas_mlp.py:{line}",
+            "launches": launches, "steps": steps,
+            "launches_per_step": launches / steps, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": {"n": n, "g": 1, "width": 130,
+                                          "layers": 1},
+        })
+    return out
+
+
+def build_all() -> None:
+    """Build both kernel libraries side by side (one nvcc each) and print
+    each build's time and ptxas register and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from awesome_tpu_torch.ops import flagship, mlp
+
+    def build(lib):
+        t0 = time.perf_counter()
+        path = lib.build()
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        done = list(pool.map(build, (flagship.LIBRARY, mlp.LIBRARY)))
+    for path, dt in done:
+        print(f"build: {path} in {dt:.1f} s", flush=True)
+        for line in path.with_suffix(".build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 def main() -> int:
@@ -355,13 +906,7 @@ def main() -> int:
     dev = "cuda"
     smi = nvidia_smi_line()
     print(f"card: {smi}", flush=True)
-    t0 = time.perf_counter()
-    lib = flagship.build_library()
-    log = lib.with_suffix(".build.log").read_text()
-    print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_all()
 
     t0 = time.perf_counter()
     for name, make, tp in (("bench", bench_model, 64),
@@ -383,11 +928,20 @@ def main() -> int:
                                   "bitwise_repeat": True}), flush=True)
     print(f"kernel_vs_plain: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    icnn_checks(dev)
+    k3_model, k3_launches, k3_steps, res = k3_path(K3_STEPS, dev)
+    print(json.dumps(res), flush=True)
 
     model, main_launches, main_steps, res = main_path(STEPS, dev)
     print(json.dumps(res), flush=True)
     bmodel, b_launches, b_steps, res = batched_path(STEPS, dev)
     print(json.dumps(res), flush=True)
+    k4, k5, convex_steps, res = convex_path(STEPS, dev)
+    print(json.dumps(res), flush=True)
+    _, _, _, res = batched_convex_path(STEPS, dev)
+    print(json.dumps(res), flush=True)
+    for kind in ("flagship", "convex"):
+        print(json.dumps(sequential_path(kind, dev)), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
@@ -395,9 +949,14 @@ def main() -> int:
                      480 * 640, 1, 7, main_launches, main_steps, 20, dev),
         kernel_entry("flagship_loss_grad (K2, G=8)", replaces, bmodel,
                      64 * 64, 8, 9, b_launches, b_steps, 50, dev),
-    ]
-    print("library: no single PyTorch call computes this fused loss and "
-          "gradient; library_ms is null")
+        kernel_entry("flagship_loss_grad interleave=True (K3, G=2; the "
+                     "K2 kernel)", "awesome_tpu/ops/pallas_flagship.py:459",
+                     k3_model, 64 * 64, 2, 11, k3_launches, k3_steps, 50,
+                     dev),
+    ] + icnn_entries(k4, k5, convex_steps, 50, dev)
+    print("library: no single PyTorch call computes the fused flagship loss "
+          "and gradient, a fused ICNN forward, or its weight grads; "
+          "library_ms is null")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -215,8 +215,6 @@ def test_grouped_fused_fit_matches_single():
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
                                        atol=2e-6)
     with pytest.raises(NotImplementedError):
-        make_grouped_fused_fit_fn(tm, cfg, group=g, interleave=True)
-    with pytest.raises(NotImplementedError):
         TF.make_fit_fn(tm, dataclasses.replace(cfg,
                                                compute_dtype=torch.bfloat16))
 
@@ -227,6 +225,16 @@ def test_grouped_fused_fit_matches_jax(nan_target):
     kernel in interpret mode): a short plateau patience and a large LR make
     the group's one LR decay within the run; a NaN target in one image
     must freeze the whole group."""
+    _grouped_vs_jax(nan_target, interleave=False)
+
+
+def test_grouped_fused_fit_interleave_matches_jax():
+    """``interleave=True`` runs JAX's ``_kernel_interleaved`` (K3); the
+    port serves it with the grouped kernel, so it follows the same fit."""
+    _grouped_vs_jax(False, interleave=True)
+
+
+def _grouped_vs_jax(nan_target, interleave):
     from awesome_tpu.fit.fused_fit import (
         make_grouped_fused_fit_fn as j_grouped,
     )
@@ -243,9 +251,10 @@ def test_grouped_fused_fit_matches_jax(nan_target):
     kw = dict(num_steps=20, lr=5e-2, nan_guard_grads=False,
               plateau_patience=1)
     ref_params, ref_aux = jax.jit(j_grouped(
-        jm, JF.FitConfig(**kw), group=g, interpret=True, tile_n=64))(
-        js, jnp.asarray(pts), jnp.asarray(tgts))
-    params, aux = make_grouped_fused_fit_fn(tm, TF.FitConfig(**kw), group=g)(
+        jm, JF.FitConfig(**kw), group=g, interpret=True, tile_n=64,
+        interleave=interleave))(js, jnp.asarray(pts), jnp.asarray(tgts))
+    params, aux = make_grouped_fused_fit_fn(
+        tm, TF.FitConfig(**kw), group=g, interleave=interleave)(
         params_from_jax(js, device=CPU, stacked=True), torch.tensor(pts),
         torch.tensor(tgts))
     assert aux["loss_hist"].shape == (20, g)

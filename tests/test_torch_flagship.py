@@ -161,6 +161,39 @@ def test_grouped_matches_per_image():
                                        rtol=1e-5, atol=1e-8)
 
 
+@pytest.mark.parametrize("n", [None, 97])
+def test_interleave_matches_jax_interleaved_kernel(n):
+    """``interleave=True`` (the JAX package's ``_kernel_interleaved``, K3)
+    against that kernel in interpret mode, G = 2, full grid and ragged N:
+    the port serves it with the grouped kernel's function."""
+    jm, tm = _models(h=12, w=12, flows=2, hidden=8, icnn=8, layers=1)
+    packs, jpacks, tgts, wgts = [], [], [], []
+    for g in range(2):
+        jp = _params(jm, 30 + g)
+        jpacks.append(JP.pack_flagship(
+            jm, jax.tree_util.tree_map(jnp.asarray, jp)))
+        packs.append(TP.pack_flagship(tm, params_from_jax(jp, device=CPU)))
+        pts, tgt, wts = _data(12, 12, n=n, shift=2 * g)
+        tgts.append(tgt)
+        wgts.append(wts)
+    kern = JP.make_flagship_loss_grad(jm, tile_n=64, interpret=True, group=2,
+                                      interleave=True)
+    j_loss, j_grads = kern(
+        {k: jnp.stack([p[k] for p in jpacks]) for k in jpacks[0]},
+        jnp.asarray(pts), jnp.asarray(np.stack(tgts)),
+        jnp.asarray(np.stack(wgts)))
+    f = TP.make_flagship_loss_grad(tm, group=2, interleave=True)
+    loss, grads = f({k: torch.stack([p[k] for p in packs]) for k in packs[0]},
+                    torch.tensor(pts), torch.tensor(np.stack(tgts)),
+                    torch.tensor(np.stack(wgts)))
+    np.testing.assert_allclose(loss.numpy(), np.asarray(j_loss).reshape(2),
+                               rtol=LOSS_RTOL)
+    for name in TP.PACKED_FIELDS:
+        np.testing.assert_allclose(grads[name].numpy(),
+                                   np.asarray(j_grads[name]),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
 def test_w2_off_block_grads_are_masked():
     jm, tm = _models()
     pts, tgt, wts = _data()
@@ -182,8 +215,6 @@ def test_rejections():
           torch.zeros((0, 1)))
     with pytest.raises(ValueError):
         TP.make_flagship_loss_grad(tm, interleave=True)
-    with pytest.raises(NotImplementedError):
-        TP.make_flagship_loss_grad(tm, group=2, interleave=True)
     with pytest.raises(NotImplementedError):
         TP.make_flagship_loss_grad(tm, use_bf16=True)
     sig = t_factory(channels=2, hidden_units=8, flow_n_flows=2,

@@ -1,4 +1,5 @@
-"""The CUDA flagship kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (flagship loss+grad, ICNN forward and backward) against
+their plain PyTorch versions, on the card.
 
 Imports no JAX, so it runs where the card is:
 ``python3 -m pytest --noconftest -q tests/test_torch_kernel_gpu.py``.
@@ -84,5 +85,88 @@ def test_fused_fit_on_card_launches_once_per_step(cuda_device):
         torch.cuda.synchronize()
         launched = TP.flagship_loss_grad_cuda.launches - before
         assert launched == (cfg.num_steps if dev != "cpu" else 0)
+        hist[dev] = aux["loss_hist"].cpu().numpy()
+    np.testing.assert_allclose(hist[cuda_device], hist["cpu"], rtol=2e-4)
+
+
+# (width, layers, in_features) of the ICNNs the fused ICNN kernels serve:
+# the runner default and how-to, the flagship's ICNN, the convex teaser,
+# the space-time teaser, the multi-object children
+ICNN_CONFIGS = [(130, 1, 2), (130, 2, 2), (150, 1, 2), (50, 1, 3),
+                (64, 1, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,layers,c", ICNN_CONFIGS)
+def test_icnn_kernels_match_plain(cuda_device, width, layers, c):
+    """K4 and K5 against the plain versions on the card: a ragged N, G = 3
+    with shared and with per-image points; y at rtol 1e-5 (atol 1e-6 of
+    max|y|, since y crosses 0), dx and weight grads at rtol 5e-4, atol
+    1e-6 of the largest grad (the kernels sum in another order); two K5
+    launches are bitwise equal."""
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.ops import mlp as M
+
+    base = ConvexNextNet(n_hidden=width, in_features=c,
+                         n_hidden_layers=layers, device=cuda_device)
+    spec = M.IcnnSpec.of(base)
+    gen = torch.Generator().manual_seed(width + layers)
+    g, n = 3, 4097
+    stacked = TT.stack_trees([
+        TT.tree_map(lambda a: a + 0.05 * torch.randn(
+            a.shape, generator=gen).to(a.device), base.init(gen))
+        for _ in range(g)])
+    flat = M.pack_rows(M.flat_weights(stacked), g)
+    gy = torch.randn((g, n), generator=gen).to(cuda_device)
+    for x in (torch.rand((n, c), generator=gen).to(cuda_device),
+              torch.rand((g, n, c), generator=gen).to(cuda_device)):
+        y = M.icnn_forward_cuda(spec, flat, x)
+        dp, dx = M.icnn_backward_cuda(spec, flat, x, gy)
+        dp2, dx2 = M.icnn_backward_cuda(spec, flat, x, gy)
+        assert torch.equal(dp, dp2) and torch.equal(dx, dx2)
+        ref_y = M.icnn_forward_plain(stacked, x)[..., 0]
+        ref_tree, ref_dx = M.icnn_backward_plain(stacked, x, gy[..., None])
+        ref_dp = M.pack_rows(M.flat_weights(ref_tree), g)
+        ya, ry = y.cpu().numpy(), ref_y.cpu().numpy()
+        np.testing.assert_allclose(ya, ry, rtol=1e-5,
+                                   atol=1e-6 * np.abs(ry).max())
+        for got, ref in ((dp, ref_dp), (dx, ref_dx)):
+            got, ref = got.cpu().numpy(), ref.cpu().numpy()
+            np.testing.assert_allclose(got, ref, rtol=GRAD_RTOL,
+                                       atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.gpu
+def test_batched_convex_fit_launches_once_per_step(cuda_device):
+    """A batched fit of 3 images with FullyFusedConvexNextNet makes one K4
+    and one K5 launch per step for the whole batch (plus one K4 for the
+    gate's scores), and follows the same fit run on the CPU."""
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.fit.prior_fit import FitConfig, fit_priors_batched
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.ops import mlp as M
+
+    h = w = 20
+    b = 3
+    yy, xx = np.mgrid[0:h, 0:w]
+    targets = torch.tensor(np.stack([
+        (1.0 - (((yy - 8 - i) ** 2 + (xx - 9) ** 2) <= 25).astype(
+            np.float32)).reshape(-1, 1) for i in range(b)]))
+    cfg = FitConfig(num_steps=8, lr=2e-3, optimizer="adam", fg_weight=0.4,
+                    gate_threshold=0.5)
+    hist = {}
+    for dev in ("cpu", cuda_device):
+        model = M.FullyFusedConvexNextNet(ConvexNextNet(n_hidden=24,
+                                                        device=dev))
+        stacked = TT.stack_trees([model.init(torch.Generator().manual_seed(i))
+                                  for i in range(b)])
+        pts = G.flatten_grid(G.pixel_grid((h, w), device=dev))
+        f0 = M.icnn_forward_cuda.launches
+        b0 = M.icnn_backward_cuda.launches
+        _, aux = fit_priors_batched(model, stacked, pts, targets.to(dev), cfg)
+        torch.cuda.synchronize()
+        on_card = dev != "cpu"
+        assert M.icnn_forward_cuda.launches - f0 == (9 if on_card else 0)
+        assert M.icnn_backward_cuda.launches - b0 == (8 if on_card else 0)
         hist[dev] = aux["loss_hist"].cpu().numpy()
     np.testing.assert_allclose(hist[cuda_device], hist["cpu"], rtol=2e-4)

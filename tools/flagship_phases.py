@@ -26,6 +26,7 @@ from awesome_tpu_torch.core import grids as G
 from awesome_tpu_torch.core import tree as T
 from awesome_tpu_torch.nn.path_connected import real_nvp_path_connected_net
 from awesome_tpu_torch.ops import flagship as F
+from awesome_tpu_torch.ops.build import check
 
 # PHASE(k) ids of csrc/flagship.cu
 PHASES = (
@@ -61,18 +62,18 @@ def main() -> None:
     tgt = (torch.rand((1, n), generator=gen) > 0.5).float().cuda()
     wpt = torch.full((1, n), 1.0 / n, device="cuda")
     # the wrapper loads its library once; hand it the profiled build
-    lib = F.load_library(F.build_library(("-DFLAGSHIP_PROFILE",)))
+    lib = F.LIBRARY.load(F.LIBRARY.build(("-DFLAGSHIP_PROFILE",)))
     lib.flagship_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.flagship_phase_cycles.restype = ctypes.c_int
-    F._LIB["lib"] = lib
+    F.LIBRARY.use(lib)
     shape = F.launch_shape(spec, n, 1, None, x.device)
     F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True, shape)
     torch.cuda.synchronize()
     counts = (ctypes.c_ulonglong * 16)()
-    F._check(lib.flagship_phase_cycles(None, 1), "reset counters")
+    check(lib.flagship_phase_cycles(None, 1), "reset counters")
     F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True, shape)
     torch.cuda.synchronize()
-    F._check(lib.flagship_phase_cycles(ctypes.addressof(counts), 0),
+    check(lib.flagship_phase_cycles(ctypes.addressof(counts), 0),
              "read counters")
     cycles = np.array(counts[:len(PHASES)], dtype=np.float64)
     total = float(cycles.sum())
