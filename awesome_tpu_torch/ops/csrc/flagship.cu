@@ -19,13 +19,24 @@
 // matrices: ~3 * (F*(2H*2 + 4*2H) + W*2 + L*W*(W+2) + (W+2)) MACs. For the
 // bench model (F=12, H=32, W=130, L=2) that is ~118k MAC = ~236k FLOP per
 // point, ~72 GFLOP per step at 480x640 (307,200 points). The inputs are
-// 16 B per point plus ~160 KB of weights, so the kernel is bound by FP32
-// arithmetic, not by memory: at the card's 67 TFLOP/s FP32 (CUDA cores,
-// no tensor cores: the arithmetic is plain FP32 FMAs, as the TPU reference
-// pins full f32) a step needs at least ~1.1 ms. ~90% of the MACs are the
-// ICNN's three W x W products per layer; the flow is ~12% of the MACs but
-// is a long chain of small steps, each a few FMAs per point followed by a
-// reduction over points.
+// 16 B per point plus ~160 KB of weights, so the kernel is bound by
+// arithmetic, not by memory. ~86% of the MACs are the ICNN's three W x W
+// products per layer. Two bounds at 480x640:
+// - all of it as FP32 FMAs at the card's 67 TFLOP/s: ~1.08 ms;
+// - the products on the TF32 tensor cores, three MMAs each for FP32
+//   accuracy (3xTF32) at 495 TFLOP/s, the rest as FP32 FMAs: ~0.53 ms.
+// The arithmetic is plain FP32 FMAs (the TPU reference pins full f32), at
+// ~7x the first bound. A 3xTF32 `mma.sync` design of the products kept
+// FP32 accuracy but made the kernel 1-2% slower (`PERF.md`, Findings;
+// its routines are in `tools/csrc/mma_tf32_trial.cuh`, and
+// `tools/product_bench.py` times them beside the FMA routines here). The
+// FMA products are bound by the shared-memory loads of their inner loop
+// (one scalar load per 4 FFMAs), then by streaming the weights through
+// shared memory again for every chunk, not by arithmetic; 3xTF32 cuts the
+// first but doubles the second. (`wgmma` wants 64-row tiles in a shared
+// layout of its own, for which the rows below leave no room.) The flow is
+// ~12% of the MACs but a long chain of small steps, each a few FMAs per
+// point followed by a reduction over points.
 //
 // Design.
 // - A block takes one image g and a tile of `chunks` chunks of TP points

@@ -12,10 +12,10 @@ Phases, each printing its own line (any failure exits nonzero):
    register and spill lines;
 2. the fused flagship loss+grad kernel against its plain PyTorch version:
    the bench model (flow 32x12, ICNN 130x2), the factory default (flow
-   130x6, ICNN 130x2), and the bench model with a third ICNN layer (the
-   kernel's 32-point instantiation); N = 64*64 and a ragged 4097, G = 1
-   and 2; loss rtol 1e-5, grads rtol 5e-4 atol 1e-6; two launches bitwise
-   equal;
+   130x6, ICNN 130x2), the bench model with a third ICNN layer or with
+   ICNN width 150 (both take the kernel's 32-point instantiation), and
+   with ICNN width 50; N = 64*64 and a ragged 4097, G = 1 and 2; loss rtol
+   1e-5, grads rtol 5e-4 atol 1e-6; two launches bitwise equal;
 3. the ICNN kernels K4 and K5 against their plain versions for the five
    ICNN shapes the port serves, N = 4096 and 4097, G = 1 and G = 3 with
    shared and with per-image points: y rtol 1e-5 (atol 1e-6 of max|y|, y
@@ -60,6 +60,7 @@ Without CUDA it exits nonzero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -88,28 +89,17 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def bench_model(shape, device):
+def bench_model(shape, device, width=130, layers=2):
+    """The bench model (flow 32 x 12, ICNN 130 x 2), or with another ICNN
+    width or depth."""
     from awesome_tpu_torch.nn.path_connected import (
         real_nvp_path_connected_net,
     )
 
     return real_nvp_path_connected_net(
         channels=2, hidden_units=32, flow_n_flows=12, flow_output_fn="tanh",
-        spatial_shape=shape, convex_net_hidden_units=130,
-        convex_net_hidden_layers=2, device=device)
-
-
-def deep_model(shape, device):
-    """The bench model with a third ICNN layer: too wide for the kernel's
-    64-point chunks, so the launch takes its 32-point instantiation."""
-    from awesome_tpu_torch.nn.path_connected import (
-        real_nvp_path_connected_net,
-    )
-
-    return real_nvp_path_connected_net(
-        channels=2, hidden_units=32, flow_n_flows=12, flow_output_fn="tanh",
-        spatial_shape=shape, convex_net_hidden_units=130,
-        convex_net_hidden_layers=3, device=device)
+        spatial_shape=shape, convex_net_hidden_units=width,
+        convex_net_hidden_layers=layers, device=device)
 
 
 def default_model(shape, device):
@@ -909,9 +899,12 @@ def main() -> int:
     build_all()
 
     t0 = time.perf_counter()
-    for name, make, tp in (("bench", bench_model, 64),
-                           ("default", default_model, 64),
-                           ("deep", deep_model, 32)):
+    for name, make, tp in (
+            ("bench", bench_model, 64), ("default", default_model, 64),
+            ("deep", functools.partial(bench_model, layers=3), 32),
+            ("icnn width 50", functools.partial(bench_model, width=50), 64),
+            ("icnn width 150", functools.partial(bench_model, width=150),
+             32)):
         model = make((64, 64), dev)
         spec = flagship.FlagshipSpec.of(model)
         for n in (64 * 64, 4097):

@@ -26,15 +26,17 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layers,tp", [(2, 64), (3, 32)])
-def test_cuda_kernel_matches_plain(cuda_device, layers, tp):
-    """The CUDA kernel against the plain version on the card (bench-width
-    ICNN, ragged N, G = 2); two launches are bitwise equal. A third ICNN
-    layer no longer fits 64-point chunks in shared memory and takes the
-    32-point instantiation."""
+@pytest.mark.parametrize("width,layers,tp", [(130, 2, 64), (130, 3, 32),
+                                             (50, 2, 64), (150, 2, 32)])
+def test_cuda_kernel_matches_plain(cuda_device, width, layers, tp):
+    """The CUDA kernel against the plain version on the card (ragged N,
+    G = 2); two launches are bitwise equal. The bench-width ICNN (130) at
+    two layers takes 64-point chunks; a third layer, or width 150, no
+    longer fits them in shared memory and takes the 32-point
+    instantiation. Width 50 is a narrow ICNN."""
     tm = t_factory(channels=2, hidden_units=32, flow_n_flows=12,
                    flow_output_fn="tanh", spatial_shape=(64, 64),
-                   convex_net_hidden_units=130,
+                   convex_net_hidden_units=width,
                    convex_net_hidden_layers=layers, device=cuda_device)
     spec = TP.FlagshipSpec.of(tm)
     gen = torch.Generator().manual_seed(0)

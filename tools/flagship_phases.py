@@ -1,15 +1,20 @@
 """Where the flagship kernel's time goes, phase by phase, on the card.
 
     python3 -m tools.flagship_phases [--h 480] [--w 640]
-        [--model bench|default]
+        [--model bench|default] [--root DIR]
 
 Builds ``awesome_tpu_torch/ops/csrc/flagship.cu`` with
 ``-DFLAGSHIP_PROFILE`` (per-phase ``clock64`` counters of block (0, 0),
 each phase closed by a barrier), runs one fused loss+grad on random params
-at the given image size through that build, and prints one JSON line: the
-card, the launch shape, and each phase's cycles and share. The barriers
-the counters add make the profiled kernel a little slower than the plain
-build; the shares are what to read.
+at the given image size through that build, then times the plain build
+(``chip_smoke.cuda_time_ms`` over REPS launches), and prints one JSON
+line: the card, the launch shape, the plain build's ms per call, and each
+phase's cycles and share. The barriers the counters add make the profiled
+kernel a little slower than the plain build; the shares are what to read.
+
+``--root`` takes the package from another checkout (e.g. an earlier
+commit unpacked with ``git archive``), so that two versions of the kernel
+can be compared in one run on one card.
 """
 from __future__ import annotations
 
@@ -17,16 +22,13 @@ import argparse
 import ctypes
 import dataclasses
 import json
-import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from awesome_tpu_torch.core import grids as G
-from awesome_tpu_torch.core import tree as T
-from awesome_tpu_torch.nn.path_connected import real_nvp_path_connected_net
-from awesome_tpu_torch.ops import flagship as F
-from awesome_tpu_torch.ops.build import check
+from chip_smoke import cuda_time_ms, nvidia_smi_line
 
 # PHASE(k) ids of csrc/flagship.cu
 PHASES = (
@@ -36,6 +38,7 @@ PHASES = (
     "flow bwd: ds|dt", "flow bwd: h and dh", "flow bwd: weight grads, dz",
     "translate bwd",
 )
+REPS = 20  # timed launches of the plain build
 
 
 def main() -> None:
@@ -43,9 +46,20 @@ def main() -> None:
     ap.add_argument("--h", type=int, default=480)
     ap.add_argument("--w", type=int, default=640)
     ap.add_argument("--model", choices=("bench", "default"), default="bench")
+    ap.add_argument("--root", default=None,
+                    help="checkout whose awesome_tpu_torch to build and run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flagship_phases needs a CUDA card")
+    if args.root is not None:
+        sys.path.insert(0, str(Path(args.root).resolve()))
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.nn.path_connected import (
+        real_nvp_path_connected_net,
+    )
+    from awesome_tpu_torch.ops import flagship as F
+    from awesome_tpu_torch.ops.build import check
     kw = dict(hidden_units=32, flow_n_flows=12) if args.model == "bench" \
         else {}
     model = real_nvp_path_connected_net(
@@ -77,13 +91,15 @@ def main() -> None:
              "read counters")
     cycles = np.array(counts[:len(PHASES)], dtype=np.float64)
     total = float(cycles.sum())
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    F.LIBRARY.use(F.LIBRARY.load(F.LIBRARY.build()))
+    ms = cuda_time_ms(
+        lambda: F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True,
+                                          shape), REPS)
     print(json.dumps({
-        "card": card, "model": args.model, "shape": [args.h, args.w],
-        "launch": dataclasses.asdict(shape),
+        "card": nvidia_smi_line(),
+        "root": str(Path(F.__file__).resolve().parents[2]),
+        "model": args.model, "shape": [args.h, args.w],
+        "launch": dataclasses.asdict(shape), "ms": ms,
         "block0_cycles": total,
         "phases": [{"phase": name, "cycles": float(c),
                     "share": float(c) / total}

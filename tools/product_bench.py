@@ -1,0 +1,208 @@
+"""The flagship kernel's ICNN product routines, alone, on the card.
+
+    python3 -m tools.product_bench
+
+Builds ``tools/csrc/product_bench.cu`` once per variant below (one nvcc
+each, all started together, in ``build/product_bench/<variant>/`` beside
+its copies of the two routine sources) and prints one JSON line with the
+card and:
+
+- ``rates``: what one SM issues per cycle, every SM running one block of
+  256 threads (``clock64``): FP32 FMAs, TF32 ``mma.sync.m16n8k8`` (alone,
+  and with the ``cvt.rna`` splits a 3xTF32 step needs), bf16 ``m16n8k16``,
+  the latency of one chain of TF32 MMAs, and conflict-free 32- and 128-bit
+  shared loads;
+- ``routines``: cycles per call of the three ICNN products of one 64-point
+  chunk at the bench model's ICNN width, one block of 256 threads per SM,
+  with the
+  operands in shared memory and the weights in global memory as in the
+  kernel: ``mm_rows`` forward (``fwd``) and backward data (``bwd``) and
+  ``wgrad_tiled`` (``wgrad``) from ``awesome_tpu_torch/ops/csrc/flagship.cu``
+  as it is, and the 3xTF32 routines of ``tools/csrc/mma_tf32_trial.cuh``
+  (``tc_*``). Variant ``full`` checks every routine's output against an
+  FP64 product and fails above ``RTOL`` (of the largest output).
+
+The other variants cut parts of the weight staging of the forward and
+backward-data routines (both kinds) out of the source text, so their
+output is wrong and only their cycles are read: ``nofetch`` (no global
+loads of the weights), ``nostash`` (no stores of a slab into shared
+memory), ``nobar`` (no barrier after each slab) and ``inner`` (all three:
+the inner product loop alone). The weight-grad routines stage nothing and
+are the same in every variant.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+from awesome_tpu_torch.ops.build import NVCC_FLAGS, check, nvcc
+from chip_smoke import nvidia_smi_line
+
+ROOT = Path(__file__).resolve().parents[1]
+KERNEL = ROOT / "awesome_tpu_torch" / "ops" / "csrc" / "flagship.cu"
+TRIAL = ROOT / "tools" / "csrc" / "mma_tf32_trial.cuh"
+BENCH = ROOT / "tools" / "csrc" / "product_bench.cu"
+OUT = ROOT / "build" / "product_bench"
+
+WIDTH = 130  # the bench model's ICNN width
+TP = 64  # points per chunk: the bench model's instantiation
+REPS = 20  # timed calls of each routine
+SMS = 132  # blocks: one per SM of an H100 SXM
+RTOL = 1e-5
+ROUTINES = ("fwd", "bwd", "wgrad", "tc_fwd", "tc_bwd", "tc_wgrad")
+MODES = ("ffma", "mma_tf32", "mma_tf32_split", "mma_bf16", "mma_chain",
+         "lds32", "lds128")
+
+# (text, replacement) in the FMA routine and in the 3xTF32 routine
+FETCH = [("? __ldcg(A + (size_t)m * sr + (size_t)c * sc)",
+          "? (float)(m - c)")]
+STASH = [("if (idx < KB * T::RT) dst[cc * T::ASTR + r] = pre[l];",
+          "if (idx < KB * T::RT && M < 0) dst[cc * T::ASTR + r] = pre[l];"),
+         ("if (idx < KB * T::RT)\n          split_tf32(",
+          "if (idx < KB * T::RT && M < 0)\n          split_tf32(")]
+BAR = [("stash(As + ((s + 1) & 1) * T::SLAB);\n      __syncthreads();",
+        "stash(As + ((s + 1) & 1) * T::SLAB);"),
+       ("if (s + 1 < nslab) stash(s + 1);\n      __syncthreads();",
+        "if (s + 1 < nslab) stash(s + 1);")]
+VARIANTS = {"full": [], "nofetch": FETCH, "nostash": STASH, "nobar": BAR,
+            "inner": FETCH + STASH + BAR}
+
+
+def build(name: str):
+    """Patch copies of the kernel and the trial header and compile the
+    bench against them; returns (library path, ptxas lines)."""
+    d = OUT / name
+    d.mkdir(parents=True, exist_ok=True)
+    texts = {KERNEL.name: KERNEL.read_text(), TRIAL.name: TRIAL.read_text()}
+    patched = set()
+    for old, new in VARIANTS[name]:
+        hits = [f for f, s in texts.items() if s.count(old) == 1]
+        if not hits:
+            raise RuntimeError(f"{name}: {old!r} is in no routine source")
+        for f in hits:
+            texts[f] = texts[f].replace(old, new)
+        patched.update(hits)
+    if VARIANTS[name] and patched != set(texts):
+        raise RuntimeError(f"{name} leaves {set(texts) - patched} as it is")
+    # the bench source goes beside the patched copies: a quoted #include
+    # looks in the including file's own directory first
+    texts[BENCH.name] = BENCH.read_text()
+    for f, s in texts.items():
+        (d / f).write_text(s)
+    lib = d / "libproduct_bench.so"
+    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(lib),
+                          str(d / BENCH.name)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}:\n{res.stderr[-3000:]}")
+    # ptxas names each kernel (routine<64, R> mangles to
+    # ...routineILi64ELi<R>EE...), then gives its registers and spills
+    lines, kernel = {}, None
+    for line in res.stderr.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"routineILi\d+ELi(\d)EE", line)
+            kernel = ROUTINES[int(m.group(1))] if m else None
+        elif kernel and ("registers" in line or "spill" in line):
+            lines.setdefault(kernel, []).append(
+                line.split("ptxas info")[-1].strip(" :"))
+    return lib, lines
+
+
+def load(lib: Path) -> ctypes.CDLL:
+    cdll = ctypes.CDLL(str(lib))
+    cdll.product_bench_routine.argtypes = \
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    cdll.product_bench_rate.argtypes = \
+        [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    return cdll
+
+
+def rates(cdll) -> dict:
+    """FLOP (or shared-memory bytes) per cycle per SM of each mode."""
+    iters = 2000
+    # per warp and iteration: FLOP, or bytes for the loads
+    work = {"ffma": 8 * 32 * 32 * 2, "mma_tf32": 8 * 2048,
+            "mma_tf32_split": 8 * 2048, "mma_bf16": 8 * 4096,
+            "mma_chain": 2048, "lds32": 8 * 32 * 4, "lds128": 8 * 32 * 16}
+    threads = 256
+    sink = torch.empty(SMS * threads, device="cuda")
+    cyc = torch.zeros(SMS, dtype=torch.int64, device="cuda")
+    out = {}
+    for i, mode in enumerate(MODES):
+        check(cdll.product_bench_rate(i, sink.data_ptr(), cyc.data_ptr(),
+                                      SMS, threads, iters), mode)
+        c = float(cyc.double().mean())
+        unit = "bytes" if mode.startswith("lds") else "flop"
+        out[mode] = {
+            f"{unit}_per_cycle_per_sm":
+                work[mode] * iters * (threads // 32) / c,
+            "cycles_per_iter": c / iters}
+    return out
+
+
+def routines(cdll, checked: bool) -> dict:
+    """Mean cycles per call of each routine over the SMs; with
+    ``checked``, also each routine's largest error against FP64."""
+    gen = torch.Generator().manual_seed(0)
+    m = k = WIDTH
+    tps = TP + 4
+    a = (torch.randn(m * k, generator=gen) * 0.05).cuda()
+    b = torch.zeros(k, tps)
+    b[:, :TP] = torch.rand(k, TP, generator=gen)
+    b2 = torch.zeros(m, tps)
+    b2[:, :TP] = torch.randn(m, TP, generator=gen)
+    b, b2 = b.cuda(), b2.cuda()
+    o = torch.empty(m * tps, device="cuda")
+    part = torch.empty(SMS * m * k, device="cuda")
+    cyc = torch.zeros(SMS, dtype=torch.int64, device="cuda")
+    wmat = a.double().reshape(m, k)
+    refs = {"fwd": wmat @ b[:, :TP].double(),
+            "bwd": wmat.T @ b[:, :TP].double(),
+            "wgrad": b2[:, :TP].double() @ b[:, :TP].double().T}
+    out = {}
+    for i, name in enumerate(ROUTINES):
+        def run(n):
+            check(cdll.product_bench_routine(
+                i, a.data_ptr(), b.data_ptr(), b2.data_ptr(), o.data_ptr(),
+                part.data_ptr(), cyc.data_ptr(), m, k, n, SMS), name)
+        run(1)
+        entry = {}
+        if checked:
+            got = (part[:m * k].reshape(m, k) if name.endswith("wgrad")
+                   else o.reshape(m, tps)[:, :TP]).double()
+            ref = refs[name.removeprefix("tc_")]
+            err = float((got - ref).abs().max() / ref.abs().max())
+            if not err <= RTOL:
+                raise AssertionError(f"{name}: error {err} of the largest "
+                                     f"output, above {RTOL}")
+            entry["max_rel_err"] = err
+        run(REPS)
+        entry["cycles"] = float(cyc.double().mean()) / REPS
+        out[name] = entry
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("product_bench needs a CUDA card")
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        built = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
+    res = {"card": nvidia_smi_line(), "width": WIDTH, "tp": TP,
+           "macs_per_call": WIDTH * WIDTH * TP}
+    for name, (lib, ptxas) in built.items():
+        cdll = load(lib)
+        if name == "full":
+            res["rates"] = rates(cdll)
+        res.setdefault("routines", {})[name] = {
+            "cycles": routines(cdll, name == "full"),
+            "ptxas": ptxas}
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()
