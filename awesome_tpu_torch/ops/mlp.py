@@ -35,7 +35,6 @@ import torch
 
 from awesome_tpu_torch.nn.module import Module
 from awesome_tpu_torch.ops.build import Library, check
-from awesome_tpu_torch.ops.flagship import LaunchShape
 
 Params = Any
 
@@ -156,15 +155,15 @@ def icnn_backward_plain(params: Params, x: torch.Tensor, g: torch.Tensor
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.icnn_forward.argtypes = [vp] * 3 + [i] * 11 + [vp]
+    lib.icnn_forward.argtypes = [vp] * 3 + [i] * 12 + [vp]
     lib.icnn_forward.restype = i
-    lib.icnn_backward.argtypes = [vp] * 6 + [i] * 11 + [vp]
+    lib.icnn_backward.argtypes = [vp] * 6 + [i] * 12 + [vp]
     lib.icnn_backward.restype = i
-    lib.icnn_smem_bytes.argtypes = [i] * 4
+    lib.icnn_smem_bytes.argtypes = [i] * 5
     lib.icnn_smem_bytes.restype = i
     lib.icnn_device_limits.argtypes = [i, vp, vp]
     lib.icnn_device_limits.restype = i
-    lib.icnn_blocks_per_sm.argtypes = [i] * 4
+    lib.icnn_blocks_per_sm.argtypes = [i] * 5
     lib.icnn_blocks_per_sm.restype = i
 
 
@@ -177,30 +176,52 @@ def _device_index(device: torch.device) -> int:
         torch.cuda.current_device()
 
 
+@dataclasses.dataclass(frozen=True)
+class IcnnLaunch:
+    """How K4 or K5 is launched: ``tp`` points per chunk, ``resident``
+    weights (one hidden layer, its weight held in shared memory by each
+    block) or staged ones, ``smem`` bytes per block, ``chunks`` per block,
+    ``n_tiles`` blocks per image."""
+
+    tp: int
+    resident: bool
+    smem: int
+    chunks: int
+    n_tiles: int
+
+
 @functools.lru_cache(maxsize=64)
 def launch_shape(kind: int, width: int, n_layers: int, n: int, group: int,
-                 device_index: int) -> LaunchShape:
+                 device_index: int) -> IcnnLaunch:
     """Pick the launch shape of K4 (``kind`` 0) or K5 (1): 64-point chunks
-    where they fit in shared memory, else 32; the blocks of all images fill
-    one wave of the card. It depends only on the shapes and the card, so
-    two calls on the same inputs reduce in the same order."""
+    where they fit in shared memory, else 32; at 64, resident weights (one
+    hidden layer) unless staged ones put more blocks on an SM; the blocks
+    of all images fill one wave of the card. It depends only on the shapes
+    and the card, so two calls on the same inputs reduce in the same
+    order."""
     lib = LIBRARY.get()
     max_smem, sms = ctypes.c_int(), ctypes.c_int()
     check(lib.icnn_device_limits(device_index, ctypes.byref(max_smem),
                                  ctypes.byref(sms)), "device query")
     for tp in (64, 32):
-        smem = lib.icnn_smem_bytes(kind, tp, width, n_layers)
-        if smem <= max_smem.value:
+        fits = []
+        for res in ((1, 0) if n_layers == 1 and tp == 64 else (0,)):
+            smem = lib.icnn_smem_bytes(kind, tp, width, n_layers, res)
+            if smem <= max_smem.value:
+                per_sm = lib.icnn_blocks_per_sm(kind, device_index, tp, res,
+                                                smem)
+                if per_sm < 1:
+                    raise RuntimeError(f"occupancy query failed ({per_sm})")
+                fits.append((per_sm, res, smem))
+        if fits:
             break
     else:
         raise ValueError(f"ICNN too wide for the kernel: needs {smem} B of "
                          f"shared memory, the card allows {max_smem.value}")
-    per_sm = lib.icnn_blocks_per_sm(kind, device_index, tp, smem)
-    if per_sm < 1:
-        raise RuntimeError(f"occupancy query failed ({per_sm})")
+    per_sm, res, smem = max(fits, key=lambda f: f[0])  # ties: resident
     n_chunks = -(-n // tp)
     chunks = max(1, -(-n_chunks * group // (sms.value * per_sm)))
-    return LaunchShape(tp, smem, chunks, -(-n_chunks // chunks))
+    return IcnnLaunch(tp, bool(res), smem, chunks, -(-n_chunks // chunks))
 
 
 def _check_operands(spec: IcnnSpec, flat, x, extra=()):
@@ -237,7 +258,7 @@ def icnn_forward_cuda(spec: IcnnSpec, flat: torch.Tensor,
     code = LIBRARY.get().icnn_forward(
         x.data_ptr(), flat.data_ptr(), y.data_ptr(), _device_index(dev), n,
         g, spec.in_features, spec.width, spec.n_layers, x_gs, shape.tp,
-        shape.smem, shape.chunks, shape.n_tiles,
+        int(shape.resident), shape.smem, shape.chunks, shape.n_tiles,
         torch.cuda.current_stream(dev).cuda_stream)
     check(code, "ICNN forward kernel launch")
     icnn_forward_cuda.launches += 1
@@ -265,7 +286,7 @@ def icnn_backward_cuda(spec: IcnnSpec, flat: torch.Tensor, x: torch.Tensor,
         x.data_ptr(), g.data_ptr(), flat.data_ptr(), partials.data_ptr(),
         dparams.data_ptr(), dx.data_ptr(), _device_index(dev), n, grp,
         spec.in_features, spec.width, spec.n_layers, x_gs, shape.tp,
-        shape.smem, shape.chunks, shape.n_tiles,
+        int(shape.resident), shape.smem, shape.chunks, shape.n_tiles,
         torch.cuda.current_stream(dev).cuda_stream)
     check(code, "ICNN backward kernel launch")
     icnn_backward_cuda.launches += 1

@@ -17,9 +17,10 @@ Phases, each printing its own line (any failure exits nonzero):
    with ICNN width 50; N = 64*64 and a ragged 4097, G = 1 and 2; loss rtol
    1e-5, grads rtol 5e-4 atol 1e-6; two launches bitwise equal;
 3. the ICNN kernels K4 and K5 against their plain versions for the five
-   ICNN shapes the port serves, N = 4096 and 4097, G = 1 and G = 3 with
-   shared and with per-image points: y rtol 1e-5 (atol 1e-6 of max|y|, y
-   crosses 0), dx and weight grads rtol 5e-4, atol 1e-6 of the largest
+   ICNN shapes the port serves and two at K5's tile edges, N = 4096 and
+   4097, G = 1 and G = 3 with shared and with per-image points: y rtol
+   1e-5 (atol 1e-6 of max|y|, y crosses 0), dx and weight grads rtol
+   5e-4, atol 1e-6 of the largest
    grad (the kernels sum in another order than cuBLAS); two K5 launches
    bitwise equal; ``FusedConvexNextNet`` (K4 and the plain VJP) grads
    against the plain model's;
@@ -413,6 +414,11 @@ ICNN_CONFIGS = (
     ("convex teaser", 150, 1, 2),
     ("space-time teaser", 50, 1, 3),
     ("multi-object child", 64, 1, 2),
+    # K5's tile edges: its backward-data product's W + C rows take a
+    # second 144-row pass, its weight grads' W + C + 1 columns a second
+    # 136-column tile
+    ("tile edge: W + C > 144", 143, 1, 2),
+    ("tile edge: W + C + 1 > 136", 134, 1, 3),
 )
 
 

@@ -93,9 +93,12 @@ def test_fused_fit_on_card_launches_once_per_step(cuda_device):
 
 # (width, layers, in_features) of the ICNNs the fused ICNN kernels serve:
 # the runner default and how-to, the flagship's ICNN, the convex teaser,
-# the space-time teaser, the multi-object children
+# the space-time teaser, the multi-object children; then two at the
+# kernels' tile edges: K5's backward-data product (W + C rows) takes a
+# second pass of 144 rows at W = 143, C = 2, and its weight grads (W + C +
+# 1 columns) a second tile of 136 columns at W = 134, C = 3
 ICNN_CONFIGS = [(130, 1, 2), (130, 2, 2), (150, 1, 2), (50, 1, 3),
-                (64, 1, 2)]
+                (64, 1, 2), (143, 1, 2), (134, 1, 3)]
 
 
 @pytest.mark.gpu

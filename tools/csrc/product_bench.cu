@@ -83,7 +83,7 @@ int launch_routine(const float* A, const float* B, const float* B2, float* O,
 }
 
 enum Mode { FFMA, MMA_TF32, MMA_TF32_SPLIT, MMA_BF16, MMA_CHAIN, LDS32,
-            LDS128 };
+            LDS128, LDS128_BCAST };
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -103,7 +103,9 @@ __device__ __forceinline__ uint32_t rna(float x) {
 // Per thread and iteration: FFMA 8 x 32 independent FMAs; MMA_* 8
 // independent MMAs (MMA_TF32_SPLIT also splits its 6 operand registers, as
 // a 3xTF32 step must); MMA_CHAIN one MMA that waits on the last; LDS32 and
-// LDS128 8 conflict-free shared loads each.
+// LDS128 8 conflict-free shared loads each; LDS128_BCAST 8 128-bit loads
+// of which each half-warp reads one address (two a warp, in distinct
+// banks), as the ICNN products read their weights.
 template <int MODE>
 __global__ void rate(float* out, long long* cyc, int iters, float seed) {
   __shared__ float4 sh4[1024];
@@ -146,10 +148,11 @@ __global__ void rate(float* out, long long* cyc, int iters, float seed) {
     } else if constexpr (MODE == LDS32) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) f[k] += sh[(t + 32 * k + it) & 4095];
-    } else if constexpr (MODE == LDS128) {
+    } else if constexpr (MODE == LDS128 || MODE == LDS128_BCAST) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const float4 v = sh4[(t + 32 * k + it) & 1023];
+        const int i = MODE == LDS128 ? t : 5 * (t >> 4);
+        const float4 v = sh4[(i + 32 * k + it) & 1023];
         f[4 * k] += v.x;
         f[4 * k + 1] += v.y;
         f[4 * k + 2] += v.z;
@@ -227,6 +230,8 @@ int product_bench_rate(int mode, float* out, long long* cyc, int blocks,
       return launch_rate<MMA_CHAIN>(out, cyc, blocks, threads, iters);
     case LDS32: return launch_rate<LDS32>(out, cyc, blocks, threads, iters);
     case LDS128: return launch_rate<LDS128>(out, cyc, blocks, threads, iters);
+    case LDS128_BCAST:
+      return launch_rate<LDS128_BCAST>(out, cyc, blocks, threads, iters);
   }
   return -1;
 }

@@ -1,6 +1,6 @@
-"""The flagship kernel's ICNN product routines, alone, on the card.
+"""The ICNN product routines of the kernels, alone, on the card.
 
-    python3 -m tools.product_bench
+    python3 -m tools.product_bench [--parent DIR]
 
 Builds ``tools/csrc/product_bench.cu`` once per variant below (one nvcc
 each, all started together, in ``build/product_bench/<variant>/`` beside
@@ -10,8 +10,9 @@ card and:
 - ``rates``: what one SM issues per cycle, every SM running one block of
   256 threads (``clock64``): FP32 FMAs, TF32 ``mma.sync.m16n8k8`` (alone,
   and with the ``cvt.rna`` splits a 3xTF32 step needs), bf16 ``m16n8k16``,
-  the latency of one chain of TF32 MMAs, and conflict-free 32- and 128-bit
-  shared loads;
+  the latency of one chain of TF32 MMAs, conflict-free 32- and 128-bit
+  shared loads, and 128-bit loads that each half-warp broadcasts from one
+  address (bytes counted per thread, as for the others);
 - ``routines``: cycles per call of the three ICNN products of one 64-point
   chunk at the bench model's ICNN width, one block of 256 threads per SM,
   with the
@@ -29,9 +30,21 @@ loads of the weights), ``nostash`` (no stores of a slab into shared
 memory), ``nobar`` (no barrier after each slab) and ``inner`` (all three:
 the inner product loop alone). The weight-grad routines stage nothing and
 are the same in every variant.
+
+``icnn_routines`` gives the same three products as the ICNN kernels K4
+and K5 run them (``awesome_tpu_torch/ops/csrc/icnn.cu``, built into
+``tools/csrc/icnn_bench.cu``, a translation unit of its own since both
+kernel sources define the same names; ``*_res`` the forward and
+backward-data products with the weight resident in shared memory, as the
+kernels take it with one hidden layer), each checked against an FP64
+product: ``this`` is this checkout's source, ``parent`` the one under
+``--parent DIR`` (e.g. the parent commit unpacked with ``git archive``
+under ``build/``). This checkout's routines are also built cut as above
+(``nofetch``, ``nobar``, ``inner``; no check).
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -48,6 +61,8 @@ ROOT = Path(__file__).resolve().parents[1]
 KERNEL = ROOT / "awesome_tpu_torch" / "ops" / "csrc" / "flagship.cu"
 TRIAL = ROOT / "tools" / "csrc" / "mma_tf32_trial.cuh"
 BENCH = ROOT / "tools" / "csrc" / "product_bench.cu"
+ICNN = Path("awesome_tpu_torch") / "ops" / "csrc" / "icnn.cu"
+ICNN_BENCH = ROOT / "tools" / "csrc" / "icnn_bench.cu"
 OUT = ROOT / "build" / "product_bench"
 
 WIDTH = 130  # the bench model's ICNN width
@@ -56,8 +71,11 @@ REPS = 20  # timed calls of each routine
 SMS = 132  # blocks: one per SM of an H100 SXM
 RTOL = 1e-5
 ROUTINES = ("fwd", "bwd", "wgrad", "tc_fwd", "tc_bwd", "tc_wgrad")
+ICNN_ROUTINES = ROUTINES[:3] + ("fwd_res", "bwd_res")
+# the interface of icnn.cu's routines before float4 operands (API 1)
+ICNN_API1 = "float* out, int ld, bool first)"
 MODES = ("ffma", "mma_tf32", "mma_tf32_split", "mma_bf16", "mma_chain",
-         "lds32", "lds128")
+         "lds32", "lds128", "lds128_bcast")
 
 # (text, replacement) in the FMA routine and in the 3xTF32 routine
 FETCH = [("? __ldcg(A + (size_t)m * sr + (size_t)c * sc)",
@@ -72,6 +90,53 @@ BAR = [("stash(As + ((s + 1) & 1) * T::SLAB);\n      __syncthreads();",
         "if (s + 1 < nslab) stash(s + 1);")]
 VARIANTS = {"full": [], "nofetch": FETCH, "nostash": STASH, "nobar": BAR,
             "inner": FETCH + STASH + BAR}
+# the same cuts in icnn.cu's routines (this checkout's): no weight copies,
+# no barrier a slab, neither
+ICNN_FETCH = [("        cp_async4(dst + r * T::AST + cc,",
+               "        if (M < 0) cp_async4(dst + r * T::AST + cc,")]
+ICNN_BAR = [("        __syncthreads();  // slab s landed",
+             "        // slab s landed")]
+ICNN_VARIANTS = {"full": [], "nofetch": ICNN_FETCH, "nobar": ICNN_BAR,
+                 "inner": ICNN_FETCH + ICNN_BAR}
+
+
+def compile_bench(d: Path, src: Path, names, flags=()):
+    """nvcc ``src`` (in ``d``) into ``d``; returns (library path, ptxas
+    lines per routine in ``names``)."""
+    lib = d / f"lib{src.stem}.so"
+    res = subprocess.run([nvcc(), *NVCC_FLAGS, *flags, "-o", str(lib),
+                          str(src)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {d.name}:\n{res.stderr[-3000:]}")
+    # ptxas names each kernel (routine<64, R> mangles to
+    # ...routineILi64ELi<R>EE...), then gives its registers and spills
+    lines, kernel = {}, None
+    for line in res.stderr.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"routineILi\d+ELi(\d)EE", line)
+            kernel = names[int(m.group(1))] if m else None
+        elif kernel and ("registers" in line or "spill" in line):
+            lines.setdefault(kernel, []).append(
+                line.split("ptxas info")[-1].strip(" :"))
+    return lib, lines
+
+
+def build_icnn(label: str, root: Path, variant: str = "full"):
+    """Compile the ICNN bench against ``root``'s icnn.cu, cut as
+    ``variant`` says."""
+    d = OUT / f"icnn_{label}_{variant}"
+    d.mkdir(parents=True, exist_ok=True)
+    src = (root / ICNN).read_text()
+    for old, new in ICNN_VARIANTS[variant]:
+        if src.count(old) != 1:
+            raise RuntimeError(f"icnn {variant}: {old!r} is not in icnn.cu")
+        src = src.replace(old, new)
+    (d / ICNN.name).write_text(src)
+    (d / ICNN_BENCH.name).write_text(ICNN_BENCH.read_text())
+    api = 1 if ICNN_API1 in src else 2
+    names = ICNN_ROUTINES[:3] if api == 1 else ICNN_ROUTINES
+    return compile_bench(d, d / ICNN_BENCH.name, names,
+                         (f"-DICNN_BENCH_API={api}",)) + (names,)
 
 
 def build(name: str):
@@ -95,30 +160,18 @@ def build(name: str):
     texts[BENCH.name] = BENCH.read_text()
     for f, s in texts.items():
         (d / f).write_text(s)
-    lib = d / "libproduct_bench.so"
-    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(lib),
-                          str(d / BENCH.name)], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}:\n{res.stderr[-3000:]}")
-    # ptxas names each kernel (routine<64, R> mangles to
-    # ...routineILi64ELi<R>EE...), then gives its registers and spills
-    lines, kernel = {}, None
-    for line in res.stderr.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"routineILi\d+ELi(\d)EE", line)
-            kernel = ROUTINES[int(m.group(1))] if m else None
-        elif kernel and ("registers" in line or "spill" in line):
-            lines.setdefault(kernel, []).append(
-                line.split("ptxas info")[-1].strip(" :"))
-    return lib, lines
+    return compile_bench(d, d / BENCH.name, ROUTINES)
 
 
 def load(lib: Path) -> ctypes.CDLL:
     cdll = ctypes.CDLL(str(lib))
-    cdll.product_bench_routine.argtypes = \
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-    cdll.product_bench_rate.argtypes = \
-        [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    for fn in ("product_bench_routine", "icnn_bench_routine"):
+        if hasattr(cdll, fn):
+            getattr(cdll, fn).argtypes = \
+                [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    if hasattr(cdll, "product_bench_rate"):
+        cdll.product_bench_rate.argtypes = \
+            [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
     return cdll
 
 
@@ -128,7 +181,8 @@ def rates(cdll) -> dict:
     # per warp and iteration: FLOP, or bytes for the loads
     work = {"ffma": 8 * 32 * 32 * 2, "mma_tf32": 8 * 2048,
             "mma_tf32_split": 8 * 2048, "mma_bf16": 8 * 4096,
-            "mma_chain": 2048, "lds32": 8 * 32 * 4, "lds128": 8 * 32 * 16}
+            "mma_chain": 2048, "lds32": 8 * 32 * 4, "lds128": 8 * 32 * 16,
+            "lds128_bcast": 8 * 32 * 16}
     threads = 256
     sink = torch.empty(SMS * threads, device="cuda")
     cyc = torch.zeros(SMS, dtype=torch.int64, device="cuda")
@@ -145,7 +199,8 @@ def rates(cdll) -> dict:
     return out
 
 
-def routines(cdll, checked: bool) -> dict:
+def routines(cdll, checked: bool, names=ROUTINES,
+             entry_fn="product_bench_routine") -> dict:
     """Mean cycles per call of each routine over the SMs; with
     ``checked``, also each routine's largest error against FP64."""
     gen = torch.Generator().manual_seed(0)
@@ -165,9 +220,9 @@ def routines(cdll, checked: bool) -> dict:
             "bwd": wmat.T @ b[:, :TP].double(),
             "wgrad": b2[:, :TP].double() @ b[:, :TP].double().T}
     out = {}
-    for i, name in enumerate(ROUTINES):
+    for i, name in enumerate(names):
         def run(n):
-            check(cdll.product_bench_routine(
+            check(getattr(cdll, entry_fn)(
                 i, a.data_ptr(), b.data_ptr(), b2.data_ptr(), o.data_ptr(),
                 part.data_ptr(), cyc.data_ptr(), m, k, n, SMS), name)
         run(1)
@@ -175,7 +230,7 @@ def routines(cdll, checked: bool) -> dict:
         if checked:
             got = (part[:m * k].reshape(m, k) if name.endswith("wgrad")
                    else o.reshape(m, tps)[:, :TP]).double()
-            ref = refs[name.removeprefix("tc_")]
+            ref = refs[name.removeprefix("tc_").removesuffix("_res")]
             err = float((got - ref).abs().max() / ref.abs().max())
             if not err <= RTOL:
                 raise AssertionError(f"{name}: error {err} of the largest "
@@ -188,10 +243,23 @@ def routines(cdll, checked: bool) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=None,
+                    help="another checkout whose icnn.cu to bench beside")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("product_bench needs a CUDA card")
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+    roots = {"this": ROOT}
+    if args.parent is not None:
+        roots["parent"] = Path(args.parent).resolve()
+    icnn_builds = [(label, "full") for label in roots] + \
+        [("this", v) for v in ICNN_VARIANTS if v != "full"]
+    with ThreadPoolExecutor(len(VARIANTS) + len(icnn_builds)) as pool:
+        icnn_built = {(label, v): pool.submit(build_icnn, label,
+                                              roots[label], v)
+                      for label, v in icnn_builds}
         built = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
+        icnn_built = {k: f.result() for k, f in icnn_built.items()}
     res = {"card": nvidia_smi_line(), "width": WIDTH, "tp": TP,
            "macs_per_call": WIDTH * WIDTH * TP}
     for name, (lib, ptxas) in built.items():
@@ -200,6 +268,12 @@ def main() -> None:
             res["rates"] = rates(cdll)
         res.setdefault("routines", {})[name] = {
             "cycles": routines(cdll, name == "full"),
+            "ptxas": ptxas}
+    for (label, v), (lib, ptxas, names) in icnn_built.items():
+        res.setdefault("icnn_routines", {})[f"{label} {v}"] = {
+            "root": str(roots[label]),
+            "cycles": routines(load(lib), v == "full", names,
+                               "icnn_bench_routine"),
             "ptxas": ptxas}
     print(json.dumps(res))
 
