@@ -1,11 +1,14 @@
 """Conversion between the JAX package's param trees and this port's.
 
-The trees have the same structure (dicts and lists, the same keys). One
-layout differs: a JAX ``Linear`` weight ``w`` is ``(in, out)`` and the
-port's is torch's ``(out, in)``. Every weight leaf named ``w`` with a
-matrix shape is transposed; 1-D ``w`` leaves (``PerChannelAffine``) are
-not. ``stacked=True`` means every leaf carries a leading image axis;
-an int ``stacked`` counts leading axes (2 for an (image, object) tree).
+The trees have the same structure (dicts and lists, the same keys). Two
+layouts differ: a JAX ``Linear`` weight ``w`` is ``(in, out)`` and the
+port's is torch's ``(out, in)``; a JAX conv weight ``w`` is HWIO ``(kh,
+kw, in, out)`` and the port's is torch's ``(out, in, kh, kw)``. Every
+weight leaf named ``w`` with a matrix or a 4-D shape is converted; 1-D
+``w`` leaves (``PerChannelAffine``) are not. Float leaves become float32;
+integer leaves (the batch-norm ``count``) keep their type.
+``stacked=True`` means every leaf carries a leading image axis; an int
+``stacked`` counts leading axes (2 for an (image, object) tree).
 
 The JAX side is passed as numpy arrays (``jax.device_get`` of a tree), so
 this module imports no JAX.
@@ -30,20 +33,38 @@ def _walk(tree, leaf_fn, key=None):
     return leaf_fn(key, tree)
 
 
-def _is_matrix_weight(key, ndim: int, stacked: int) -> bool:
-    return key == "w" and ndim == 2 + int(stacked)
+def _to_port(key, a: np.ndarray, stacked: int) -> np.ndarray:
+    lead = int(stacked)
+    if key == "w" and a.ndim == 2 + lead:  # (in, out) -> (out, in)
+        return np.swapaxes(a, -1, -2)
+    if key == "w" and a.ndim == 4 + lead:  # HWIO -> (out, in, kh, kw)
+        return np.moveaxis(a, (lead + 3, lead + 2), (lead, lead + 1))
+    return a
+
+
+def _to_jax(key, a: np.ndarray, stacked: int) -> np.ndarray:
+    lead = int(stacked)
+    if key == "w" and a.ndim == 2 + lead:
+        return np.swapaxes(a, -1, -2)
+    if key == "w" and a.ndim == 4 + lead:
+        return np.moveaxis(a, (lead, lead + 1), (lead + 3, lead + 2))
+    return a
 
 
 def params_from_jax(tree: Params, device: DeviceLike = None,
                     stacked: int = False) -> Params:
-    """JAX param tree (leaves as numpy arrays) -> the port's params."""
+    """JAX param or state tree (leaves as numpy arrays) -> the port's.
+    ``None`` leaves stay ``None``."""
     dev = resolve_device(device)
 
     def leaf(key, x):
-        a = np.asarray(x, dtype=np.float32)
-        if _is_matrix_weight(key, a.ndim, stacked):
-            a = np.swapaxes(a, -1, -2)
-        return torch.tensor(np.ascontiguousarray(a), device=dev)
+        if x is None:
+            return None
+        a = np.asarray(x)
+        if a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        a = _to_port(key, a, stacked)
+        return torch.tensor(a.copy(order="C"), device=dev)
 
     return _walk(tree, leaf)
 
@@ -53,9 +74,9 @@ def params_to_numpy(params: Params, stacked: int = False) -> Params:
     inverse of :func:`params_from_jax`."""
 
     def leaf(key, x):
-        a = x.detach().cpu().numpy()
-        if _is_matrix_weight(key, a.ndim, stacked):
-            a = np.ascontiguousarray(np.swapaxes(a, -1, -2))
-        return a
+        if x is None:
+            return None
+        return _to_jax(key, x.detach().cpu().numpy(), stacked).copy(
+            order="C")
 
     return _walk(params, leaf)

@@ -19,7 +19,6 @@ import torch
 from awesome_tpu_torch.core import tree as T
 from awesome_tpu_torch.fit.prior_fit import (
     FitConfig,
-    _check_cfg,
     _stacked_weights,
     make_point_weights,
     run_fit_loop,
@@ -43,12 +42,13 @@ class _FlatFit:
 
     def __init__(self, model, cfg: FitConfig, tile_n: Optional[int],
                  group: int = 1, interleave: bool = False):
-        _check_cfg(cfg)
         self.model = model
         self.cfg = cfg
+        # compute_dtype: the kernel's bf16 build (bf16 product operands,
+        # FP32 master params and loss), as the JAX fused fit does
         self.fused: FlagshipLossGrad = make_flagship_loss_grad(
             model, use_sigmoid=cfg.use_sigmoid, tile_n=tile_n, group=group,
-            interleave=interleave)
+            interleave=interleave, use_bf16=cfg.compute_dtype is not None)
         self.spec = self.fused.spec
         off, p_len = self.spec.offsets()
         wd = packed_weight_decay(self.spec.field_shapes(),
@@ -115,8 +115,9 @@ def make_fused_fit_fn(model, cfg: FitConfig,
 def make_batched_fused_fit_fn(model, cfg: FitConfig,
                               tile_n: Optional[int] = None) -> Callable:
     """The batched fit on the fused kernel: the images are the kernel's
-    leading axis and share the points; every image keeps its own optimizer,
-    plateau and NaN-guard state (what ``vmap`` of the single fit gives).
+    leading axis, with shared points (N, 2) or one set per image (B, N,
+    2); every image keeps its own optimizer, plateau and NaN-guard state
+    (what ``vmap`` of the single fit gives).
     ``engine(stacked_params, points, targets, active (B,),
     point_masks=None) -> (params, aux)`` with ``loss_hist`` (B, steps)."""
     eng = _FlatFit(model, cfg, tile_n)

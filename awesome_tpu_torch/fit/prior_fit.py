@@ -32,7 +32,10 @@ Params = Any
 class FitConfig:
     """Static configuration of a prior fit; the fields of the JAX
     package's ``FitConfig``. ``unroll`` has no effect here (there is no
-    scan to unroll); ``compute_dtype`` is not supported yet and raises."""
+    scan to unroll). ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the
+    model math in that type, with FP32 master params, optimizer state and
+    loss: the fused route takes the kernel's bf16 build, the autograd
+    route casts params and points (:func:`apply_in_dtype`)."""
 
     num_steps: int = 2000
     lr: float = 1e-3
@@ -167,18 +170,39 @@ def run_fit_loop(loss_grad: Callable, params: Params, cfg: FitConfig,
 run_fit_loop.steps = 0
 
 
+def apply_in_dtype(model, params: Params, points: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    """``model.apply`` with params and points cast to ``dtype`` and the
+    output cast back to float32, as the JAX package's autograd route does
+    under ``compute_dtype``; the grads reach the FP32 params through the
+    casts.
+
+    A fused ICNN (K4/K5) on the card follows the JAX kernel on a TPU
+    instead: its FP32 kernels take the params and points rounded to
+    ``dtype``. (On the CPU, like the JAX package off the TPU, it runs its
+    plain version in ``dtype``.)"""
+    from awesome_tpu_torch.ops.mlp import fused_icnn
+
+    if points.device.type == "cuda" and fused_icnn(model):
+        def rnd(t):
+            return t.to(dtype).to(torch.float32)
+
+        return model.apply(T.tree_map(rnd, params), rnd(points))
+    out = model.apply(T.tree_map(lambda p: p.to(dtype), params),
+                      points.to(dtype))
+    return out.to(torch.float32)
+
+
 def _default_loss(model, cfg: FitConfig) -> Callable:
     def loss_fn(params, points, target, weights):
-        out = model.apply(params, points)
+        if cfg.compute_dtype is not None:
+            out = apply_in_dtype(model, params, points, cfg.compute_dtype)
+        else:
+            out = model.apply(params, points)
         prob = torch.sigmoid(out) if cfg.use_sigmoid else out
         return torch.sum(weights * (prob - target) ** 2)
 
     return loss_fn
-
-
-def _check_cfg(cfg: FitConfig) -> None:
-    if cfg.compute_dtype is not None:
-        raise NotImplementedError("compute_dtype is not ported yet")
 
 
 def make_fit_fn(model, cfg: FitConfig,
@@ -191,7 +215,6 @@ def make_fit_fn(model, cfg: FitConfig,
     default weighted SE on the sigmoid output. ``cfg.fused`` (and no
     ``loss_fn``) routes to the fused CUDA kernel.
     """
-    _check_cfg(cfg)
     if cfg.fused and loss_fn is None:
         from awesome_tpu_torch.fit.fused_fit import make_fused_fit_fn
 
@@ -221,13 +244,9 @@ def _make_batched_engine(model, cfg: FitConfig, per_image_points: bool,
     """``engine(stacked_params, points, targets, active (B,),
     point_masks=None) -> (params, aux)`` with ``loss_hist`` (B, steps) and
     ``lr_scale`` (B,) — what ``vmap`` of the single-image fit returns."""
-    _check_cfg(cfg)
     if cfg.fused and loss_fn is None:
         from awesome_tpu_torch.fit.fused_fit import make_batched_fused_fit_fn
 
-        if per_image_points:
-            raise NotImplementedError(
-                "the fused fit shares one point set across images")
         return make_batched_fused_fit_fn(model, cfg)
     loss_fn = loss_fn or _default_loss(model, cfg)
     clip = getattr(model, "enforce_convexity", lambda p: p)
@@ -339,7 +358,8 @@ def make_batched_fit_fn(model, cfg: FitConfig, per_image_points: bool = False,
     stacked_targets, valid_mask=None, retry_keys=None, point_masks=None)
     -> (fitted, aux)``, with the IoU gate and fresh-init retry when
     ``cfg.gate_threshold`` is set. With ``cfg.fused`` the images are the
-    kernel's leading axis and share the points."""
+    kernel's leading axis; their points are shared, or one set per image
+    with ``per_image_points``."""
     engine = _make_batched_engine(model, cfg, per_image_points, loss_fn)
     gate_retry = make_gate_retry_fn(model, cfg, per_image_points,
                                     with_point_masks, loss_fn)

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from awesome_tpu_torch.device import DeviceLike
-from awesome_tpu_torch.nn.linear import Linear
+from awesome_tpu_torch.nn.linear import Linear, matmul_t
 from awesome_tpu_torch.nn.module import Module, make_generator
 
 
@@ -90,17 +90,17 @@ class RealNVPFlow(Module):
         return out
 
     def _mlp(self, p, x):
-        h = torch.relu(x @ p["l1"]["w"].T + p["l1"]["b"])
-        return self._out_fn(h @ p["l2"]["w"].T + p["l2"]["b"])
+        h = torch.relu(matmul_t(x, p["l1"]["w"]) + p["l1"]["b"])
+        return self._out_fn(matmul_t(h, p["l2"]["w"]) + p["l2"]["b"])
 
     def _st(self, step, zm):
         """s and t with their first layers merged into one matmul."""
         w1 = torch.cat([step["s"]["l1"]["w"], step["t"]["l1"]["w"]], dim=0)
         b1 = torch.cat([step["s"]["l1"]["b"], step["t"]["l1"]["b"]])
-        h = torch.relu(zm @ w1.T + b1)
+        h = torch.relu(matmul_t(zm, w1) + b1)
         hs, ht = h[:, :self.hidden_units], h[:, self.hidden_units:]
-        s = hs @ step["s"]["l2"]["w"].T + step["s"]["l2"]["b"]
-        t = ht @ step["t"]["l2"]["w"].T + step["t"]["l2"]["b"]
+        s = matmul_t(hs, step["s"]["l2"]["w"]) + step["s"]["l2"]["b"]
+        t = matmul_t(ht, step["t"]["l2"]["w"]) + step["t"]["l2"]["b"]
         return self._out_fn(s), self._out_fn(t)
 
     def apply(self, params, x):

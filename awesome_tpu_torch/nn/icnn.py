@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 from awesome_tpu_torch.device import DeviceLike
-from awesome_tpu_torch.nn.linear import Linear
+from awesome_tpu_torch.nn.linear import Linear, matmul_t
 from awesome_tpu_torch.nn.module import Module, make_generator
 
 
@@ -38,11 +38,11 @@ class ConvexNet(Module):
 
     def apply(self, params, x):
         x0 = x
-        h = torch.relu(x @ params["W0y"]["w"].T + params["W0y"]["b"])
-        h = torch.relu(h @ params["W1z"]["w"].T + params["W1z"]["b"]
-                       + x0 @ params["W1y"]["w"].T)
-        return (h @ params["W2z"]["w"].T + params["W2z"]["b"]
-                + x0 @ params["W2y"]["w"].T)
+        h = torch.relu(matmul_t(x, params["W0y"]["w"]) + params["W0y"]["b"])
+        h = torch.relu(matmul_t(h, params["W1z"]["w"]) + params["W1z"]["b"]
+                       + matmul_t(x0, params["W1y"]["w"]))
+        return (matmul_t(h, params["W2z"]["w"]) + params["W2z"]["b"]
+                + matmul_t(x0, params["W2y"]["w"]))
 
     def enforce_convexity(self, params):
         """Clip the hidden-to-hidden weights (W1z, W2z) to >= 0."""
@@ -85,13 +85,15 @@ class ConvexNextNet(Module):
     def apply(self, params, x):
         # each block's ln and skp matmuls merged into one: [h, x] @ [ln|skp]^T
         x0 = x
-        h = torch.relu(x @ params["input"]["w"].T + params["input"]["b"])
+        h = torch.relu(matmul_t(x, params["input"]["w"])
+                       + params["input"]["b"])
         for blk in params["skip"]:
             w = torch.cat([blk["ln"]["w"], blk["skp"]["w"]], dim=1)
-            h = torch.relu(torch.cat([h, x0], dim=-1) @ w.T + blk["ln"]["b"])
+            h = torch.relu(matmul_t(torch.cat([h, x0], dim=-1), w)
+                           + blk["ln"]["b"])
         out = params["out"]
         w = torch.cat([out["ln"]["w"], out["skp"]["w"]], dim=1)
-        return torch.cat([h, x0], dim=-1) @ w.T + out["ln"]["b"]
+        return matmul_t(torch.cat([h, x0], dim=-1), w) + out["ln"]["b"]
 
     def enforce_convexity(self, params):
         params = dict(params)

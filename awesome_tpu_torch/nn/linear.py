@@ -15,6 +15,14 @@ from awesome_tpu_torch.nn import init as winit
 from awesome_tpu_torch.nn.module import Module, make_generator
 
 
+def matmul_t(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` with the JAX package's type promotion: two float types
+    meet in the wider one (bf16 with float32 gives float32), where
+    torch's matmul would refuse mixed operands."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt).T
+
+
 class Linear(Module):
     """``torch.nn.Linear`` as a functional layer. ``init_mode``:
     'torch_default' | 'uniform' | 'normal' (kaiming, ``init_activation``)
@@ -56,7 +64,7 @@ class Linear(Module):
         return params
 
     def apply(self, params, x):
-        y = x @ params["w"].T
+        y = matmul_t(x, params["w"])
         if self.bias:
             y = y + params["b"]
         return y

@@ -76,8 +76,26 @@
 //   to the loss and to every gradient (the TPU pads with weight 0).
 // - Coupling masks: flow i keeps channel i % 2, which is
 //   `binary_counting_masks(2, F)` (checked in Python before any launch).
+// - Points: shared by the images of a launch (image stride 0), or one set
+//   per image (stride 2N), as under the JAX package's vmap over images.
+//
+// The bf16 build (`use_bf16` of `make_flagship_loss_grad`, template
+// parameter BF16). As `pallas_flagship.py:mm` does, every operand of every
+// matrix product (the 15 `mm`/`mmw` sites of `_kernel`) is rounded to its
+// nearest bf16 value (ties to even) and the products are summed in FP32;
+// biases, activations, exp/tanh/sigmoid, the plain sums over points (bias
+// and ActNorm grads, the loss) and the params stay FP32. A rounded value
+// is used only as a product operand: it is rounded where the product
+// loads it (`op`), or when a weight is staged into shared memory for
+// products alone, never in the rows other code reads. A product of two
+// bf16 values is exact in FP32, so these FP32 FMAs give the products that
+// bf16 tensor cores would; the build runs on the FMA routines of the FP32
+// build (bf16 `mma.sync` is a later step).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 // Built with -DFLAGSHIP_PROFILE, the kernel adds the cycles of each phase of
 // block (0, 0) into g_phase_cycles (read by flagship_phase_cycles); every
@@ -120,7 +138,19 @@ struct Consts {
 
 struct Dims {
   int N, F, H, W, L, use_tanh, use_sigmoid, chunks, n_chunks;
+  int xs;  // floats between two images' points: 0 (shared) or 2N
 };
+
+// A product operand: v rounded to the nearest bf16 in the bf16 build, v
+// itself in the FP32 build.
+template <bool BF16>
+__device__ __forceinline__ float op(float v) {
+  if constexpr (BF16) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
 
 // Thread tiling of the forward/backward-data products for TP points.
 template <int TP>
@@ -159,8 +189,9 @@ __device__ __forceinline__ void put(float* dst, float v, bool first) {
 // out(m, p) = sum_c A[m*sr + c*sc] * B[c][p] for m < M, p < TP, handed to
 // epi(m, p, acc). A is global (weights), staged in KB-deep slabs through
 // `As` (2 slabs); B is shared rows of stride TP+4. Each thread owns RI rows
-// (mg + MG*i) x 4 consecutive points.
-template <int TP, class Epi>
+// (mg + MG*i) x 4 consecutive points. In the bf16 build A is rounded as it
+// is staged and B as it is loaded.
+template <int TP, bool BF16, class Epi>
 __device__ void mm_rows(int M, int K, const float* __restrict__ A, int sr,
                         int sc, const float* B, float* As, Epi epi) {
   using T = MM<TP>;
@@ -189,7 +220,7 @@ __device__ void mm_rows(int M, int K, const float* __restrict__ A, int sr,
         const int idx = t + l * NT;
         const int r = rowwise ? idx / KB : idx % T::RT;
         const int cc = rowwise ? idx % KB : idx / T::RT;
-        if (idx < KB * T::RT) dst[cc * T::ASTR + r] = pre[l];
+        if (idx < KB * T::RT) dst[cc * T::ASTR + r] = op<BF16>(pre[l]);
       }
     };
     float acc[T::RI][4];
@@ -206,7 +237,9 @@ __device__ void mm_rows(int M, int K, const float* __restrict__ A, int sr,
       const int kmax = min(KB, K - s * KB);
       const float* bp = B + s * KB * TPS + 4 * pg;
       for (int cc = 0; cc < kmax; ++cc) {
-        const float4 b = *reinterpret_cast<const float4*>(bp + cc * TPS);
+        float4 b = *reinterpret_cast<const float4*>(bp + cc * TPS);
+        b = make_float4(op<BF16>(b.x), op<BF16>(b.y), op<BF16>(b.z),
+                        op<BF16>(b.w));
         const float* ap = cur + cc * T::ASTR + mg;
 #pragma unroll
         for (int i = 0; i < T::RI; ++i) {
@@ -235,7 +268,7 @@ __device__ void mm_rows(int M, int K, const float* __restrict__ A, int sr,
 // out[m*ld + k]. A and B are shared rows of stride TP+4; each thread owns
 // rows mg + 32i (i < 5) x cols kg + 8j (j < 17); the sum over p runs in
 // order.
-template <int TP>
+template <int TP, bool BF16>
 __device__ void wgrad_tiled(int M, int K, const float* A, const float* B,
                             float* out, int ld, bool first) {
   constexpr int TPS = TP + 4, RI = 5, RJ = 17, MS = 32, KS = 8;
@@ -258,10 +291,10 @@ __device__ void wgrad_tiled(int M, int K, const float* A, const float* B,
       for (int p = 0; p < TP; ++p) {
         float av[RI];
 #pragma unroll
-        for (int i = 0; i < RI; ++i) av[i] = ar[i][p];
+        for (int i = 0; i < RI; ++i) av[i] = op<BF16>(ar[i][p]);
 #pragma unroll
         for (int j = 0; j < RJ; ++j) {
-          const float bv = br[j][p];
+          const float bv = op<BF16>(br[j][p]);
 #pragma unroll
           for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(av[i], bv, acc[i][j]);
         }
@@ -294,8 +327,10 @@ __device__ void wgrad_tiled(int M, int K, const float* A, const float* B,
 // One thread per output (r, j), summing over the points in order; a warp
 // covers 32/NW rows, whose reads fall in distinct banks. `hmask` > 0
 // multiplies output (j, r) by the merged-layer-2 block mask
-// ((j < 2) == (r < hmask)).
-template <int TP, int NW>
+// ((j < 2) == (r < hmask)). A product (a weight row) is a matrix product
+// of the JAX kernel and rounds its operands in the bf16 build; a plain sum
+// (all-ones) does not.
+template <int TP, int NW, bool BF16>
 __device__ void rowdots(int R, const float* S, const float* const* wv,
                         float* const* out, const int* ld, bool first,
                         int hmask = 0) {
@@ -315,7 +350,8 @@ __device__ void rowdots(int R, const float* S, const float* const* wv,
     float v = 0.f;
     if (w) {
 #pragma unroll 16
-      for (int p = 0; p < TP; ++p) v = fmaf(sr[p], w[p], v);
+      for (int p = 0; p < TP; ++p)
+        v = fmaf(op<BF16>(sr[p]), op<BF16>(w[p]), v);
     } else {
 #pragma unroll 16
       for (int p = 0; p < TP; ++p) v += sr[p];
@@ -325,13 +361,18 @@ __device__ void rowdots(int R, const float* S, const float* const* wv,
   }
 }
 
-// The flow's hidden layer h = relu(w1 @ zm + b1), one element (j, p).
+// The flow's hidden layer h = relu(w1 @ zm + b1), one element (j, p), from
+// the staged w1 and b1. In the bf16 build w1 is staged rounded and the
+// caller passes zm rounded.
 __device__ __forceinline__ float flow_h(const float* w1, const float* b1,
                                         int j, float zm0, float zm1) {
   return fmaxf(fmaf(w1[2 * j + 1], zm1, w1[2 * j] * zm0) + b1[j], 0.f);
 }
 
-// Copy flow step i's w1, b1, w2, b2 into shared memory at `fw`.
+// Copy flow step i's w1, b1, w2, b2 into shared memory at `fw`. The staged
+// w1 and w2 feed products only, so the bf16 build stages them rounded; the
+// biases stay FP32.
+template <bool BF16>
 __device__ __forceinline__ void stage_flow(float* fw, const float* w1,
                                            const float* b1, const float* w2,
                                            const float* b2, int i, int H2) {
@@ -341,12 +382,14 @@ __device__ __forceinline__ void stage_flow(float* fw, const float* w1,
   int pos = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    for (int e = threadIdx.x; e < len[k]; e += NT) fw[pos + e] = src[k][e];
+    const bool product = k == 0 || k == 2;
+    for (int e = threadIdx.x; e < len[k]; e += NT)
+      fw[pos + e] = product ? op<BF16>(src[k][e]) : src[k][e];
     pos += len[k];
   }
 }
 
-template <int TP>
+template <int TP, bool BF16>
 __global__ void __launch_bounds__(NT, 1)
     flagship_fwd_bwd(const float* __restrict__ x, const float* __restrict__ tgt,
                      const float* __restrict__ wpt,
@@ -388,6 +431,7 @@ __global__ void __launch_bounds__(NT, 1)
   float* FW2 = FB1 + H2;
   float* FB2 = FW2 + 4 * H2;
 
+  const float* X = x + (size_t)g * d.xs;
   const float* P = params + (size_t)g * off.P;
   float* part = partials + ((size_t)g * gridDim.x + tile) * (off.P + 1);
   const float *wt = P + off.f[WT], *bt = P + off.f[BT];
@@ -413,7 +457,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int p = tid; p < TP; p += NT) {
       const int n = base + p;
       const bool v = n < N;
-      const float x0 = v ? x[2 * n] : 0.f, x1 = v ? x[2 * n + 1] : 0.f;
+      const float x0 = v ? X[2 * n] : 0.f, x1 = v ? X[2 * n + 1] : 0.f;
       XS[p] = x0;
       XS[TPS + p] = x1;
       TG[p] = v ? tgt[(size_t)g * N + n] : 0.f;
@@ -421,7 +465,7 @@ __global__ void __launch_bounds__(NT, 1)
       ZC[p] = (x0 * wt[0] + bt[0]) * cs.pre_a[0] + cs.pre_b[0];
       ZC[TPS + p] = (x1 * wt[1] + bt[1]) * cs.pre_a[1] + cs.pre_b[1];
     }
-    stage_flow(AS, w1, b1, w2, b2, 0, H2);
+    stage_flow<BF16>(AS, w1, b1, w2, b2, 0, H2);
     __syncthreads();
     PHASE(0);
 
@@ -433,10 +477,12 @@ __global__ void __launch_bounds__(NT, 1)
       // the 4 output rows of a point recomputes the point's h
       for (int e = tid; e < 4 * TP; e += NT) {
         const int r = e / TP, p = e % TP;
-        const float zm0 = ZC[p] * bm0, zm1 = ZC[TPS + p] * bm1;
+        const float zm0 = op<BF16>(ZC[p] * bm0);
+        const float zm1 = op<BF16>(ZC[TPS + p] * bm1);
         float acc = 0.f;
         for (int j = 0; j < H2; ++j)
-          acc = fmaf(FW2[r * H2 + j], flow_h(FW1, FB1, j, zm0, zm1), acc);
+          acc = fmaf(FW2[r * H2 + j],
+                     op<BF16>(flow_h(FW1, FB1, j, zm0, zm1)), acc);
         float v = acc + FB2[r];
         if (d.use_tanh) v = tanhf(v);
         ST[(4 * i + r) * TPS + p] = v;
@@ -457,7 +503,7 @@ __global__ void __launch_bounds__(NT, 1)
         ZPRE[(2 * i + k) * TPS + p] = zn;
         ZC[k * TPS + p] = zn * expf(an_s[2 * i + k]) + an_t[2 * i + k];
       }
-      if (i + 1 < F) stage_flow(AS, w1, b1, w2, b2, i + 1, H2);
+      if (i + 1 < F) stage_flow<BF16>(AS, w1, b1, w2, b2, i + 1, H2);
       __syncthreads();
       PHASE(2);
     }
@@ -470,7 +516,8 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
     for (int e = tid; e < W * TP; e += NT) {
       const int m = e / TP, p = e % TP;
-      const float v = fmaf(win[2 * m + 1], XD[TPS + p], win[2 * m] * XD[p]);
+      const float v = fmaf(op<BF16>(win[2 * m + 1]), op<BF16>(XD[TPS + p]),
+                           op<BF16>(win[2 * m]) * op<BF16>(XD[p]));
       HB[m * TPS + p] = fmaxf(v + bin[m], 0.f);
     }
     __syncthreads();
@@ -478,10 +525,11 @@ __global__ void __launch_bounds__(NT, 1)
       const float* ws = wsk + l * W * 2;
       const float* bl = bln + l * W;
       float* hout = HB + (l + 1) * W * TPS;
-      mm_rows<TP>(W, W, wln + (size_t)l * W * W, W, 1, HB + l * W * TPS, AS,
-                  [&](int m, int p, float acc) {
-                    acc = fmaf(ws[2 * m], XD[p], acc);
-                    acc = fmaf(ws[2 * m + 1], XD[TPS + p], acc);
+      mm_rows<TP, BF16>(W, W, wln + (size_t)l * W * W, W, 1, HB + l * W * TPS,
+                        AS, [&](int m, int p, float acc) {
+                    acc = fmaf(op<BF16>(ws[2 * m]), op<BF16>(XD[p]), acc);
+                    acc = fmaf(op<BF16>(ws[2 * m + 1]), op<BF16>(XD[TPS + p]),
+                               acc);
                     hout[m * TPS + p] = fmaxf(acc + bl[m], 0.f);
                   });
       __syncthreads();
@@ -492,9 +540,10 @@ __global__ void __launch_bounds__(NT, 1)
     // ---- loss and dL/dy ----
     for (int p = tid; p < TP; p += NT) {
       float acc = 0.f;
-      for (int k = 0; k < W; ++k) acc = fmaf(wout[k], HL[k * TPS + p], acc);
-      acc = fmaf(wosk[0], XD[p], acc);
-      acc = fmaf(wosk[1], XD[TPS + p], acc);
+      for (int k = 0; k < W; ++k)
+        acc = fmaf(op<BF16>(wout[k]), op<BF16>(HL[k * TPS + p]), acc);
+      acc = fmaf(op<BF16>(wosk[0]), op<BF16>(XD[p]), acc);
+      acc = fmaf(op<BF16>(wosk[1]), op<BF16>(XD[TPS + p]), acc);
       const float y = acc + bout[0];
       const float w = WP[p];
       float e, gy;
@@ -518,21 +567,22 @@ __global__ void __launch_bounds__(NT, 1)
       float* o_loss[1] = {part + off.P};
       float* o_bout[1] = {part + off.f[BOUT]};
       const int ld1[1] = {1};
-      rowdots<TP, 1>(1, LS, w1v, o_loss, ld1, first);
-      rowdots<TP, 1>(1, GY, w1v, o_bout, ld1, first);
+      rowdots<TP, 1, BF16>(1, LS, w1v, o_loss, ld1, first);
+      rowdots<TP, 1, BF16>(1, GY, w1v, o_bout, ld1, first);
       const float* wgy[1] = {GY};
       float* o_wout[1] = {part + off.f[WOUT]};
       float* o_wosk[1] = {part + off.f[WOSK]};
-      rowdots<TP, 1>(W, HL, wgy, o_wout, ld1, first);
-      rowdots<TP, 1>(2, XD, wgy, o_wosk, ld1, first);
+      rowdots<TP, 1, BF16>(W, HL, wgy, o_wout, ld1, first);
+      rowdots<TP, 1, BF16>(2, XD, wgy, o_wosk, ld1, first);
     }
     for (int e = tid; e < W * TP; e += NT) {
       const int m = e / TP, p = e % TP;
-      D0[m * TPS + p] = HL[m * TPS + p] > 0.f ? wout[m] * GY[p] : 0.f;
+      D0[m * TPS + p] =
+          HL[m * TPS + p] > 0.f ? op<BF16>(wout[m]) * op<BF16>(GY[p]) : 0.f;
     }
     for (int e = tid; e < 2 * TP; e += NT) {
       const int k = e / TP, p = e % TP;
-      DXD[k * TPS + p] = wosk[k] * GY[p];
+      DXD[k * TPS + p] = op<BF16>(wosk[k]) * op<BF16>(GY[p]);
     }
     __syncthreads();
     PHASE(5);
@@ -544,23 +594,24 @@ __global__ void __launch_bounds__(NT, 1)
       const float* wl = wln + (size_t)l * W * W;
       const float* ws = wsk + l * W * 2;
       const float* hin = HB + l * W * TPS;
-      wgrad_tiled<TP>(W, W, D0, hin, part + off.f[WLN] + (size_t)l * W * W,
-                      W, first);
+      wgrad_tiled<TP, BF16>(W, W, D0, hin,
+                            part + off.f[WLN] + (size_t)l * W * W, W, first);
       PHASE(6);
       float* o_skip[3] = {part + off.f[WSK] + l * W * 2,
                           part + off.f[WSK] + l * W * 2 + 1,
                           part + off.f[BLN] + l * W};
-      rowdots<TP, 3>(W, D0, wx, o_skip, ldx, first);
+      rowdots<TP, 3, BF16>(W, D0, wx, o_skip, ldx, first);
       for (int e = tid; e < 2 * TP; e += NT) {
         const int k = e / TP, p = e % TP;
         float acc = 0.f;
         for (int m = 0; m < W; ++m)
-          acc = fmaf(__ldg(ws + 2 * m + k), D0[m * TPS + p], acc);
+          acc = fmaf(op<BF16>(__ldg(ws + 2 * m + k)),
+                     op<BF16>(D0[m * TPS + p]), acc);
         DXD[k * TPS + p] += acc;
       }
       PHASE(7);
       float* dnext = D1;
-      mm_rows<TP>(W, W, wl, 1, W, D0, AS, [&](int k, int p, float acc) {
+      mm_rows<TP, BF16>(W, W, wl, 1, W, D0, AS, [&](int k, int p, float acc) {
         dnext[k * TPS + p] = hin[k * TPS + p] > 0.f ? acc : 0.f;
       });
       __syncthreads();
@@ -573,13 +624,14 @@ __global__ void __launch_bounds__(NT, 1)
     {
       float* o_in[3] = {part + off.f[WIN], part + off.f[WIN] + 1,
                         part + off.f[BIN]};
-      rowdots<TP, 3>(W, D0, wx, o_in, ldx, first);
+      rowdots<TP, 3, BF16>(W, D0, wx, o_in, ldx, first);
     }
     for (int e = tid; e < 2 * TP; e += NT) {
       const int k = e / TP, p = e % TP;
       float acc = 0.f;
       for (int m = 0; m < W; ++m)
-        acc = fmaf(__ldg(win + 2 * m + k), D0[m * TPS + p], acc);
+        acc = fmaf(op<BF16>(__ldg(win + 2 * m + k)),
+                   op<BF16>(D0[m * TPS + p]), acc);
       const float dxd = DXD[k * TPS + p] + acc;
       GZ[k * TPS + p] = dxd * cs.post_a[k];
     }
@@ -589,7 +641,7 @@ __global__ void __launch_bounds__(NT, 1)
     // ---- backward: flow (h recomputed from the saved coupling input) ----
     for (int i = F - 1; i >= 0; --i) {
       const int keep = i & 1;
-      stage_flow(AS, w1, b1, w2, b2, i, H2);
+      stage_flow<BF16>(AS, w1, b1, w2, b2, i, H2);
       for (int e = tid; e < 2 * TP; e += NT) {
         const int k = e / TP, p = e % TP;
         const float b = k == keep ? 1.f : 0.f, inv_b = 1.f - b;
@@ -599,7 +651,7 @@ __global__ void __launch_bounds__(NT, 1)
         CT[(2 + k) * TPS + p] = gz;
         gz = gz * es_an;
         const float zin = ZIN[(2 * i + k) * TPS + p];
-        ZM[k * TPS + p] = zin * b;
+        ZM[k * TPS + p] = op<BF16>(zin * b);  // read by products only
         const float s = ST[(4 * i + k) * TPS + p];
         const float t = ST[(4 * i + 2 + k) * TPS + p];
         float ds = inv_b * gz * zin * expf(s);
@@ -620,9 +672,9 @@ __global__ void __launch_bounds__(NT, 1)
         float* o_s[1] = {part + off.f[AN_S] + 2 * i};
         float* o_t[1] = {part + off.f[AN_T] + 2 * i};
         float* o_b2[1] = {part + off.f[B2] + 4 * i};
-        rowdots<TP, 1>(2, CT, w1v, o_s, ld1, first);
-        rowdots<TP, 1>(2, CT + 2 * TPS, w1v, o_t, ld1, first);
-        rowdots<TP, 1>(4, DST, w1v, o_b2, ld1, first);
+        rowdots<TP, 1, BF16>(2, CT, w1v, o_s, ld1, first);
+        rowdots<TP, 1, BF16>(2, CT + 2 * TPS, w1v, o_t, ld1, first);
+        rowdots<TP, 1, BF16>(4, DST, w1v, o_b2, ld1, first);
       }
       for (int e = tid; e < H2 * TP; e += NT) {
         const int j = e / TP, p = e % TP;
@@ -630,7 +682,7 @@ __global__ void __launch_bounds__(NT, 1)
         float acc = 0.f;
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          acc = fmaf(FW2[r * H2 + j], DST[r * TPS + p], acc);
+          acc = fmaf(FW2[r * H2 + j], op<BF16>(DST[r * TPS + p]), acc);
         HF[j * TPS + p] = h;
         DHA[j * TPS + p] = h > 0.f ? acc : 0.f;
       }
@@ -645,7 +697,7 @@ __global__ void __launch_bounds__(NT, 1)
           o_w2[r] = part + off.f[W2] + i * 4 * H2 + r * H2;
           ldw2[r] = 1;
         }
-        rowdots<TP, 4>(H2, HF, wd, o_w2, ldw2, first, d.H);
+        rowdots<TP, 4, BF16>(H2, HF, wd, o_w2, ldw2, first, d.H);
       }
       {
         const float* wz[3] = {ZM, ZM + TPS, ONE};
@@ -653,13 +705,13 @@ __global__ void __launch_bounds__(NT, 1)
                           part + off.f[W1] + i * H2 * 2 + 1,
                           part + off.f[B1] + i * H2};
         const int ldw1[3] = {2, 2, 1};
-        rowdots<TP, 3>(H2, DHA, wz, o_w1, ldw1, first);
+        rowdots<TP, 3, BF16>(H2, DHA, wz, o_w1, ldw1, first);
       }
       for (int e = tid; e < 2 * TP; e += NT) {
         const int k = e / TP, p = e % TP;
         float dzm = 0.f;
         for (int j = 0; j < H2; ++j)
-          dzm = fmaf(FW1[2 * j + k], DHA[j * TPS + p], dzm);
+          dzm = fmaf(FW1[2 * j + k], op<BF16>(DHA[j * TPS + p]), dzm);
         const float b = k == keep ? 1.f : 0.f, inv_b = 1.f - b;
         const float gz = GZ[k * TPS + p];
         const float es = expf(ST[(4 * i + k) * TPS + p]);
@@ -682,8 +734,8 @@ __global__ void __launch_bounds__(NT, 1)
       const int ld1[1] = {1};
       float* o_wt[1] = {part + off.f[WT]};
       float* o_bt[1] = {part + off.f[BT]};
-      rowdots<TP, 1>(2, CT, w1v, o_wt, ld1, first);
-      rowdots<TP, 1>(2, CT + 2 * TPS, w1v, o_bt, ld1, first);
+      rowdots<TP, 1, BF16>(2, CT, w1v, o_wt, ld1, first);
+      rowdots<TP, 1, BF16>(2, CT + 2 * TPS, w1v, o_bt, ld1, first);
     }
     __syncthreads();
     PHASE(13);
@@ -702,15 +754,16 @@ __global__ void reduce_tiles(const float* __restrict__ partials,
   out[(size_t)g * P1 + q] = s;
 }
 
-template <int TP>
+template <int TP, bool BF16>
 cudaError_t launch(const float* x, const float* tgt, const float* wpt,
                    const float* params, float* partials, float* out,
                    const Offsets& off, const Consts& cs, const Dims& d, int G,
                    int smem, int n_tiles, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flagship_fwd_bwd<TP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flagship_fwd_bwd<TP, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  flagship_fwd_bwd<TP><<<dim3(n_tiles, G), NT, smem, stream>>>(
+  flagship_fwd_bwd<TP, BF16><<<dim3(n_tiles, G), NT, smem, stream>>>(
       x, tgt, wpt, params, partials, off, cs, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -720,13 +773,26 @@ cudaError_t launch(const float* x, const float* tgt, const float* wpt,
   return cudaGetLastError();
 }
 
-template <int TP>
+template <int TP, bool BF16>
 cudaError_t occupancy(int smem, int* n) {
   cudaError_t err = cudaFuncSetAttribute(
-      flagship_fwd_bwd<TP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flagship_fwd_bwd<TP, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, flagship_fwd_bwd<TP>,
-                                                       NT, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, flagship_fwd_bwd<TP, BF16>, NT, smem);
+}
+
+// The instantiation for a tile of tp points and the build (FP32 or bf16).
+template <class Fn>
+cudaError_t dispatch(int tp, int bf16, Fn fn) {
+  if (tp == 64)
+    return bf16 ? fn(std::integral_constant<int, 64>{}, std::true_type{})
+                : fn(std::integral_constant<int, 64>{}, std::false_type{});
+  if (tp == 32)
+    return bf16 ? fn(std::integral_constant<int, 32>{}, std::true_type{})
+                : fn(std::integral_constant<int, 32>{}, std::false_type{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -759,31 +825,29 @@ int flagship_device_limits(int device, int* max_smem, int* sms) {
   return (int)err;
 }
 
-// Resident blocks per SM at this tile and shared memory (negative: error).
-int flagship_blocks_per_sm(int device, int tp, int smem) {
+// Resident blocks per SM at this tile, build and shared memory (negative:
+// error).
+int flagship_blocks_per_sm(int device, int tp, int bf16, int smem) {
   cudaError_t err = cudaSetDevice(device);
   int n = 0;
-  if (err == cudaSuccess) {
-    if (tp == 64)
-      err = occupancy<64>(smem, &n);
-    else if (tp == 32)
-      err = occupancy<32>(smem, &n);
-    else
-      err = cudaErrorInvalidValue;
-  }
+  if (err == cudaSuccess)
+    err = dispatch(tp, bf16, [&](auto t, auto b) {
+      return occupancy<decltype(t)::value, decltype(b)::value>(smem, &n);
+    });
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// One fused loss+grad: x (N,2), tgt and wpt (G,N), params (G,P) -> out
-// (G, P+1) (grads, then the loss), through partials (G, n_tiles, P+1).
-// offsets: 16 field offsets then P; consts: pre_a, pre_b, post_a, post_b
-// (2 each). Returns cudaGetLastError() of the launches.
+// One fused loss+grad: x (N,2) shared, or (G,N,2) with per_image_points,
+// tgt and wpt (G,N), params (G,P) -> out (G, P+1) (grads, then the loss),
+// through partials (G, n_tiles, P+1). offsets: 16 field offsets then P;
+// consts: pre_a, pre_b, post_a, post_b (2 each); bf16: the bf16 build.
+// Returns cudaGetLastError() of the launches.
 int flagship_loss_grad(const float* x, const float* tgt, const float* wpt,
                        const float* params, float* partials, float* out,
                        const int* offsets, const float* consts, int device,
-                       int N, int G, int F, int H, int W, int L, int use_tanh,
-                       int use_sigmoid, int tp, int smem, int chunks,
-                       int n_tiles, void* stream) {
+                       int N, int G, int per_image_points, int F, int H, int W,
+                       int L, int use_tanh, int use_sigmoid, int bf16, int tp,
+                       int smem, int chunks, int n_tiles, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (N < 1 || G < 1 || L < 1 || smem != flagship_smem_bytes(tp, F, H, W, L))
@@ -799,17 +863,13 @@ int flagship_loss_grad(const float* x, const float* tgt, const float* wpt,
     cs.post_b[k] = consts[6 + k];
   }
   const int n_chunks = (N + tp - 1) / tp;
-  Dims d{N, F, H, W, L, use_tanh, use_sigmoid, chunks, n_chunks};
+  Dims d{N, F, H, W, L, use_tanh, use_sigmoid, chunks, n_chunks,
+         per_image_points ? 2 * N : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tp == 64)
-    err = launch<64>(x, tgt, wpt, params, partials, out, off, cs, d, G, smem,
-                     n_tiles, s);
-  else if (tp == 32)
-    err = launch<32>(x, tgt, wpt, params, partials, out, off, cs, d, G, smem,
-                     n_tiles, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch(tp, bf16, [&](auto t, auto b) {
+    return launch<decltype(t)::value, decltype(b)::value>(
+        x, tgt, wpt, params, partials, out, off, cs, d, G, smem, n_tiles, s);
+  });
 }
 
 }  // extern "C"

@@ -16,7 +16,10 @@ Two implementations of the same function:
   card.
 
 A call picks by the device of its inputs; there is no fallback from one to
-the other.
+the other. Both come in an FP32 build and a bf16 build (``use_bf16``: the
+operands of every matrix product rounded to bf16, FP32 sums, FP32 params
+and loss, as the JAX kernel's ``use_bf16``). The points are shared by the
+images of a call, (N, 2), or one set per image, (G, N, 2).
 """
 from __future__ import annotations
 
@@ -279,12 +282,50 @@ def unpack_flat(spec: FlagshipSpec, flat: torch.Tensor
 # --- the plain PyTorch version ---------------------------------------------
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bf16 (ties to even), kept as float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+class RoundedMatmul(torch.autograd.Function):
+    """``a @ b`` with both operands rounded to bf16 and FP32 sums: one
+    ``mm`` of the JAX kernel's bf16 build. Its backward rounds the same
+    way, ``r(g) @ r(b)^T`` and ``r(a)^T @ r(g)``, as the kernel's backward
+    products do."""
+
+    @staticmethod
+    def forward(a, b):
+        return _bf16(a) @ _bf16(b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = _bf16(g)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ _bf16(b).mT).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            gb = (_bf16(a).mT @ g).sum_to_size(b.shape)
+        return ga, gb
+
+
+def _points_t(x: torch.Tensor) -> torch.Tensor:
+    """(N, 2) shared or (G, N, 2) per-image points -> (1 or G, 2, N)."""
+    return x.T[None] if x.ndim == 2 else x.transpose(1, 2)
+
+
 def _plain_loss(spec: FlagshipSpec, p: Dict[str, torch.Tensor],
                 x: torch.Tensor, tgt: torch.Tensor, wpt: torch.Tensor,
-                use_sigmoid: bool) -> torch.Tensor:
+                use_sigmoid: bool, use_bf16: bool = False) -> torch.Tensor:
     """Per-image loss (G,) on packed buffers with a leading image axis,
-    in the kernel's transposed (G, C, N) layout."""
+    in the kernel's transposed (G, C, N) layout. ``use_bf16``: every
+    matrix product rounds its operands (:class:`RoundedMatmul`)."""
     dev = x.device
+    mm = RoundedMatmul.apply if use_bf16 else torch.matmul
 
     def const(a):
         return torch.as_tensor(a, device=dev)
@@ -292,24 +333,23 @@ def _plain_loss(spec: FlagshipSpec, p: Dict[str, torch.Tensor],
     pre_a, pre_b = const(spec.pre_a), const(spec.pre_b)
     post_a, post_b = const(spec.post_a), const(spec.post_b)
     masks = const(spec.coupling_masks())
-    xt = x.T[None]  # (1, 2, N), points shared by the group
-    z = (xt * p["wt"] + p["bt"]) * pre_a + pre_b
+    z = (_points_t(x) * p["wt"] + p["bt"]) * pre_a + pre_b
     for i in range(spec.n_flows):
         b = masks[i].reshape(2, 1)
         zm = z * b
-        h = torch.relu(p["w1"][:, i] @ zm + p["b1"][:, i])
-        st = p["w2"][:, i] @ h + p["b2"][:, i]
+        h = torch.relu(mm(p["w1"][:, i], zm) + p["b1"][:, i])
+        st = mm(p["w2"][:, i], h) + p["b2"][:, i]
         if spec.use_tanh:
             st = torch.tanh(st)
         s, t = st[:, :2], st[:, 2:]
         z = zm + (1.0 - b) * (z * torch.exp(s) + t)
         z = z * torch.exp(p["an_s"][:, i]) + p["an_t"][:, i]
     xd = z * post_a + post_b
-    h = torch.relu(p["win"] @ xd + p["bin"])
+    h = torch.relu(mm(p["win"], xd) + p["bin"])
     for i in range(spec.n_layers):
-        h = torch.relu(p["wln"][:, i] @ h + p["wsk"][:, i] @ xd
+        h = torch.relu(mm(p["wln"][:, i], h) + mm(p["wsk"][:, i], xd)
                        + p["bln"][:, i])
-    y = p["wout"] @ h + p["wosk"] @ xd + p["bout"]  # (G, 1, N)
+    y = mm(p["wout"], h) + mm(p["wosk"], xd) + p["bout"]  # (G, 1, N)
     out = torch.sigmoid(y) if use_sigmoid else y
     e = out - tgt[:, None, :]
     return (wpt[:, None, :] * e * e).sum(dim=(1, 2))
@@ -318,15 +358,17 @@ def _plain_loss(spec: FlagshipSpec, p: Dict[str, torch.Tensor],
 def flagship_loss_grad_plain(spec: FlagshipSpec,
                              packed: Dict[str, torch.Tensor],
                              x: torch.Tensor, tgt: torch.Tensor,
-                             wpt: torch.Tensor, use_sigmoid: bool = True):
+                             wpt: torch.Tensor, use_sigmoid: bool = True,
+                             use_bf16: bool = False):
     """Plain PyTorch value-and-grad. ``packed`` leaves carry a leading
-    image axis G; ``x`` is (N, 2) and ``tgt``/``wpt`` are (G, N). Returns
-    the per-image loss (G,) and the packed grads (the ``w2`` off-blocks
-    masked to 0, as the kernel does)."""
+    image axis G; ``x`` is (N, 2), or (G, N, 2) per image, and
+    ``tgt``/``wpt`` are (G, N). Returns the per-image loss (G,) and the
+    packed grads (the ``w2`` off-blocks masked to 0, as the kernel does).
+    ``use_bf16``: the bf16 build's function."""
     leaves = {k: packed[k].detach().requires_grad_(True)
               for k in PACKED_FIELDS}
     with torch.enable_grad():
-        loss = _plain_loss(spec, leaves, x, tgt, wpt, use_sigmoid)
+        loss = _plain_loss(spec, leaves, x, tgt, wpt, use_sigmoid, use_bf16)
         grads = torch.autograd.grad(loss.sum(),
                                     [leaves[k] for k in PACKED_FIELDS])
     grads = dict(zip(PACKED_FIELDS, grads))
@@ -339,13 +381,13 @@ def flagship_loss_grad_plain(spec: FlagshipSpec,
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.flagship_loss_grad.argtypes = [vp] * 8 + [i] * 13 + [vp]
+    lib.flagship_loss_grad.argtypes = [vp] * 8 + [i] * 15 + [vp]
     lib.flagship_loss_grad.restype = i
     lib.flagship_smem_bytes.argtypes = [i] * 5
     lib.flagship_smem_bytes.restype = i
     lib.flagship_device_limits.argtypes = [i, vp, vp]
     lib.flagship_device_limits.restype = i
-    lib.flagship_blocks_per_sm.argtypes = [i] * 3
+    lib.flagship_blocks_per_sm.argtypes = [i] * 4
     lib.flagship_blocks_per_sm.restype = i
 
 
@@ -364,9 +406,11 @@ class LaunchShape:
 
 
 def launch_shape(spec: FlagshipSpec, n: int, group: int,
-                 tile_n: Optional[int], device: torch.device) -> LaunchShape:
-    """Pick the launch shape. ``tile_n`` is a hint for the points per
-    block; by default the blocks of all images fill one wave of the card.
+                 tile_n: Optional[int], device: torch.device,
+                 use_bf16: bool = False) -> LaunchShape:
+    """Pick the launch shape of the FP32 or the bf16 build. ``tile_n`` is a
+    hint for the points per block; by default the blocks of all images fill
+    one wave of the card.
     The result depends only on the shapes and the card, so two calls on the
     same inputs reduce in the same order (bitwise equal results)."""
     lib = LIBRARY.get()
@@ -387,7 +431,7 @@ def launch_shape(spec: FlagshipSpec, n: int, group: int,
     if tile_n is not None:
         chunks = max(1, -(-tile_n // tp))
     else:
-        per_sm = lib.flagship_blocks_per_sm(dev, tp, smem)
+        per_sm = lib.flagship_blocks_per_sm(dev, tp, int(use_bf16), smem)
         if per_sm < 1:
             raise RuntimeError(f"occupancy query failed ({per_sm})")
         chunks = max(1, -(-n_chunks * group // (sms.value * per_sm)))
@@ -397,15 +441,20 @@ def launch_shape(spec: FlagshipSpec, n: int, group: int,
 def flagship_loss_grad_cuda(spec: FlagshipSpec, flat: torch.Tensor,
                             x: torch.Tensor, tgt: torch.Tensor,
                             wpt: torch.Tensor, use_sigmoid: bool,
-                            shape: LaunchShape) -> torch.Tensor:
-    """Launch the kernel: ``flat`` (G, P) params, ``x`` (N, 2), ``tgt`` and
-    ``wpt`` (G, N), all float32, contiguous, on one CUDA device. Returns
-    (G, P + 1): the packed grads of each image then its loss. Adds one to
-    ``flagship_loss_grad_cuda.launches``."""
+                            shape: LaunchShape,
+                            use_bf16: bool = False) -> torch.Tensor:
+    """Launch the kernel (its bf16 build with ``use_bf16``): ``flat`` (G, P)
+    params, ``x`` (N, 2) shared or (G, N, 2) per image, ``tgt`` and ``wpt``
+    (G, N), all float32, contiguous, on one CUDA device. Returns (G, P + 1):
+    the packed grads of each image then its loss. Adds one to
+    ``flagship_loss_grad_cuda.launches`` (FP32 build) or to
+    ``flagship_loss_grad_cuda.launches_bf16`` (bf16 build)."""
     off, p_len = spec.offsets()
     g, n = tgt.shape
     dev = x.device
-    for name, t, want in (("flat", flat, (g, p_len)), ("x", x, (n, 2)),
+    per_image = x.ndim == 3
+    x_shape = (g, n, 2) if per_image else (n, 2)
+    for name, t, want in (("flat", flat, (g, p_len)), ("x", x, x_shape),
                           ("target", tgt, (g, n)), ("weights", wpt, (g, n))):
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32 on {dev}, got "
@@ -428,15 +477,19 @@ def flagship_loss_grad_cuda(spec: FlagshipSpec, flat: torch.Tensor,
         partials.data_ptr(), out.data_ptr(),
         offsets.ctypes.data, consts.ctypes.data,
         dev.index if dev.index is not None else torch.cuda.current_device(),
-        n, g, spec.n_flows, spec.hidden, spec.icnn_w, spec.n_layers,
-        int(spec.use_tanh), int(use_sigmoid), shape.tp, shape.smem,
-        shape.chunks, shape.n_tiles, stream)
+        n, g, int(per_image), spec.n_flows, spec.hidden, spec.icnn_w,
+        spec.n_layers, int(spec.use_tanh), int(use_sigmoid), int(use_bf16),
+        shape.tp, shape.smem, shape.chunks, shape.n_tiles, stream)
     check(code, "flagship kernel launch")
-    flagship_loss_grad_cuda.launches += 1
+    if use_bf16:
+        flagship_loss_grad_cuda.launches_bf16 += 1
+    else:
+        flagship_loss_grad_cuda.launches += 1
     return out
 
 
 flagship_loss_grad_cuda.launches = 0
+flagship_loss_grad_cuda.launches_bf16 = 0
 
 
 class FlagshipLossGrad:
@@ -446,31 +499,34 @@ class FlagshipLossGrad:
     flat (G, P) parameter rows, the form the fit engine keeps."""
 
     def __init__(self, spec: FlagshipSpec, use_sigmoid: bool, group: int,
-                 tile_n: Optional[int]):
+                 tile_n: Optional[int], use_bf16: bool = False):
         self.spec = spec
         self.use_sigmoid = use_sigmoid
         self.group = group
         self.tile_n = tile_n
+        self.use_bf16 = use_bf16
         self._shapes: Dict[Tuple, LaunchShape] = {}
 
     def flat(self, flat: torch.Tensor, x: torch.Tensor, tgt: torch.Tensor,
              wpt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(G, P) params, (N, 2) points, (G, N) targets and weights ->
-        per-image loss (G,) and grads (G, P)."""
-        n = x.shape[0]
+        """(G, P) params, (N, 2) shared or (G, N, 2) per-image points, (G,
+        N) targets and weights -> per-image loss (G,) and grads (G, P)."""
+        n = x.shape[-2]
         if n == 0:
             raise ValueError("flagship kernel needs at least one point")
         if x.device.type == "cpu":
             loss, grads = flagship_loss_grad_plain(
                 self.spec, unpack_flat(self.spec, flat), x, tgt, wpt,
-                self.use_sigmoid)
+                self.use_sigmoid, self.use_bf16)
             return loss, pack_flat(grads, flat.shape[0])
         key = (n, flat.shape[0], x.device)
         if key not in self._shapes:
             self._shapes[key] = launch_shape(self.spec, n, flat.shape[0],
-                                             self.tile_n, x.device)
+                                             self.tile_n, x.device,
+                                             self.use_bf16)
         out = flagship_loss_grad_cuda(self.spec, flat, x, tgt, wpt,
-                                      self.use_sigmoid, self._shapes[key])
+                                      self.use_sigmoid, self._shapes[key],
+                                      self.use_bf16)
         _, p_len = self.spec.offsets()
         return out[:, p_len], out[:, :p_len]
 
@@ -499,8 +555,9 @@ def make_flagship_loss_grad(model, use_sigmoid: bool = True,
 
     ``x``: (N, 2) points; ``target`` and ``point_weights``: (N, 1), or
     (G, N, 1) with ``group`` = G > 1, where the packed buffers carry a
-    leading image axis and the points are shared; the loss is then (G,).
-    ``tile_n`` is only a hint for the points each CUDA block takes.
+    leading image axis and the points are shared (N, 2) or per image (G,
+    N, 2); the loss is then (G,). ``tile_n`` is only a hint for the points
+    each CUDA block takes.
 
     ``interleave`` (group > 1 only) selects the JAX package's
     ``_kernel_interleaved``, which computes the same function as the
@@ -509,11 +566,12 @@ def make_flagship_loss_grad(model, use_sigmoid: bool = True,
     activations to fit VMEM. On the card the images are already separate
     blocks that run concurrently, and the kernel already recomputes the
     flow's hidden layer, so it is served by the same grouped kernel.
-    ``use_bf16`` (bf16 matmul inputs) is not ported yet and raises."""
+
+    ``use_bf16`` selects the bf16 build: the operands of every matrix
+    product are rounded to bf16 and the products summed in FP32; the
+    params, activations, plain sums and the loss stay FP32."""
     spec = FlagshipSpec.of(model)
     if interleave and group < 2:
         raise ValueError("interleave requires group >= 2")
-    if use_bf16:
-        raise NotImplementedError("use_bf16=True is not ported yet")
     spec.coupling_masks()
-    return FlagshipLossGrad(spec, use_sigmoid, group, tile_n)
+    return FlagshipLossGrad(spec, use_sigmoid, group, tile_n, use_bf16)

@@ -493,6 +493,11 @@ class FusedConvexNextNet(_Wrapped):
         return icnn_forward_fused(self.base, params, x)
 
 
+def fused_icnn(model) -> bool:
+    """Whether ``model`` is a fused ICNN (its apply runs K4, and K5)."""
+    return isinstance(model, _Wrapped)
+
+
 class FullyFusedConvexNextNet(_Wrapped):
     """ConvexNextNet whose apply runs the fused forward (K4) and the fused
     backward (K5)."""

@@ -15,7 +15,14 @@ Phases, each printing its own line (any failure exits nonzero):
    130x6, ICNN 130x2), the bench model with a third ICNN layer or with
    ICNN width 150 (both take the kernel's 32-point instantiation), and
    with ICNN width 50; N = 64*64 and a ragged 4097, G = 1 and 2; loss rtol
-   1e-5, grads rtol 5e-4 atol 1e-6; two launches bitwise equal;
+   1e-5, grads rtol 5e-4 atol 1e-6; two launches bitwise equal; then
+   per-image points (G = 8, N = 64*64 and 4097) at the same tolerances,
+   where a shared-point launch must equal, bitwise, the per-image launch
+   with the points repeated; then the bf16 build against the plain bf16
+   version (bench model at 480x640, G = 1; at 64x64, G = 8; the 3-layer
+   ICNN's 32-point instantiation, G = 2): the loss and every packed leaf
+   within a tenth of the plain version's bf16-vs-FP32 gap, by
+   (norm-)relative error;
 3. the ICNN kernels K4 and K5 against their plain versions for the five
    ICNN shapes the port serves and two at K5's tile edges, N = 4096 and
    4097, G = 1 and G = 3 with shared and with per-image points: y rtol
@@ -26,7 +33,8 @@ Phases, each printing its own line (any failure exits nonzero):
    against the plain model's;
 4. K3, ``interleave=True``: the grouped loss+grad against the plain
    version (phase-2 tolerances), then a short grouped fit that must equal
-   the ``interleave=False`` fit bitwise, with launches = steps;
+   the ``interleave=False`` fit bitwise, with launches = steps; the same
+   in the bf16 build (``compute_dtype=torch.bfloat16``);
 5. the flagship main path: ``make_fit_fn(model, FitConfig(fused=True))``
    with the bench model at 480x640 on an ellipse target; launches = steps,
    finite and decreasing loss; ms/step, point-steps/s and IoU;
@@ -44,11 +52,21 @@ Phases, each printing its own line (any failure exits nonzero):
    point masks): (a) the bench model with the flow-identity and convex
    prefits and the fused fit (K1), (b) ``FullyFusedConvexNextNet``
    (K4/K5); cold fit 500 steps, warm fits 200; launches and IoUs;
-10. a ``kernels`` JSON line: per kernel (K1-K5) its time at its path's
-    shape, its launches on that path, the steps, launches per step, its
-    bound on this card, the plain version's time, and its error against
-    the plain version at that shape;
-11. the card's name and power limit, and last the result line
+10. the bf16 fused fit (``FitConfig(fused=True,
+    compute_dtype=torch.bfloat16)``) at 480x640, 2000 steps: launches of
+    the bf16 build = steps, finite and decreasing loss, IoU; and the
+    batched bf16 fit with per-image points (8 images at 64x64);
+11. the joint path: ``__graft_entry__``'s flagship wrapper (full-width
+    UNet(4, 1) plus the bench-model prior, image mode, the clean grid, a
+    stateful UNet) trained by ``fit/trainer.py`` with
+    ``JointTrainConfig()``: 20 steps over 8 images of 64x64 in batches of
+    4 (finite losses that decrease), then 3 steps on 2 images of 480x640;
+    ms per step, peak memory and the device's idle share;
+12. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
+    K1/K2) its time at its path's shape, its launches on that path, the
+    steps, launches per step, its bound on this card, the plain version's
+    time, and its error against the plain version at that shape;
+13. the card's name and power limit, and last the result line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Phases 5-8 also profile a 20-step window of their fit with
@@ -69,16 +87,22 @@ import time
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet): FP32 on the CUDA cores and
-# HBM3 bandwidth. The kernel's arithmetic is plain FP32 FMAs.
+# H100 SXM published peaks (NVIDIA data sheet): FP32 on the CUDA cores,
+# dense bf16 on the tensor cores, and HBM3 bandwidth. The FP32 kernels'
+# arithmetic is FP32 FMAs; the bf16 build's products are bounded at the
+# bf16 tensor-core rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 LOSS_RTOL = 1e-5
 STEPS = 2000  # steps of each fit, the protocol's per-image count
 K3_STEPS = 200  # steps of the short interleaved grouped fit
+BF16_BATCH_STEPS = 500  # steps of the batched bf16 per-image-points fit
 PROF_STEPS = 20  # steps of each profiled window
 GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-6
+# the bf16 build: each error within this share of the bf16-vs-FP32 gap
+BF16_GAP_SHARE = 0.1
 
 
 def nvidia_smi_line() -> str:
@@ -138,8 +162,10 @@ def perturbed_params(model, seed: int):
         p)
 
 
-def loss_grad_inputs(model, n: int, g: int, seed: int, device):
-    """Flat params (g, P), points (n, 2), targets and weights (g, n)."""
+def loss_grad_inputs(model, n: int, g: int, seed: int, device,
+                     per_image: bool = False):
+    """Flat params (g, P), points (n, 2) (or (g, n, 2), each image's
+    shifted), targets and weights (g, n)."""
     import torch
 
     from awesome_tpu_torch.core import grids as G
@@ -160,17 +186,20 @@ def loss_grad_inputs(model, n: int, g: int, seed: int, device):
     base = ellipse_target(side, side, device)[:n]
     tgts = torch.stack([torch.roll(base, 3 * i, dims=0) for i in range(g)])
     wts = torch.stack([make_point_weights(t, FitConfig()) for t in tgts])
+    if per_image:
+        pts = torch.stack([pts + 0.37 * i for i in range(g)])
     return spec, flat, pts.contiguous(), tgts.reshape(g, n).contiguous(), \
         wts.reshape(g, n).contiguous()
 
 
 def kernel_vs_plain(model, n: int, g: int, seed: int, device,
-                    f=None) -> float:
+                    f=None, per_image: bool = False) -> float:
     """Kernel against the plain version on the same inputs; returns the
     largest absolute error over loss and grads. Raises on a mismatch or
     when two launches differ in any bit. Launches made here are taken out
     of the kernel's launch count again. ``f``: the loss+grad to check (by
-    default the grouped one of ``model``)."""
+    default the grouped one of ``model``); ``per_image``: a point set per
+    image."""
     import torch
 
     from awesome_tpu_torch.ops.flagship import (
@@ -181,7 +210,8 @@ def kernel_vs_plain(model, n: int, g: int, seed: int, device,
         unpack_flat,
     )
 
-    spec, flat, pts, tgt, wts = loss_grad_inputs(model, n, g, seed, device)
+    spec, flat, pts, tgt, wts = loss_grad_inputs(model, n, g, seed, device,
+                                                 per_image)
     f = f or FlagshipLossGrad(spec, True, g, None)
     before = flagship_loss_grad_cuda.launches
     loss_k, grads_k = f.flat(flat, pts, tgt, wts)
@@ -203,6 +233,111 @@ def kernel_vs_plain(model, n: int, g: int, seed: int, device,
     return float(max(np.abs(lk - lp).max(), np.abs(gk - gp).max()))
 
 
+def per_image_checks(device) -> None:
+    """Per-image points (K2 with an image stride) against the plain
+    version, and the shared-point launch against the per-image launch
+    with the points repeated (bitwise)."""
+    import torch
+
+    from awesome_tpu_torch.ops.flagship import (
+        FlagshipLossGrad,
+        flagship_loss_grad_cuda,
+    )
+
+    model = bench_model((64, 64), device)
+    for n in (64 * 64, 4097):
+        err = kernel_vs_plain(model, n, 8, 20 + n % 7, device,
+                              per_image=True)
+        spec, flat, pts, tgt, wts = loss_grad_inputs(model, n, 8,
+                                                     20 + n % 7, device)
+        f = FlagshipLossGrad(spec, True, 8, None)
+        before = flagship_loss_grad_cuda.launches
+        shared = f.flat(flat, pts, tgt, wts)
+        repeated = f.flat(flat, pts.expand(8, -1, -1).contiguous(), tgt, wts)
+        flagship_loss_grad_cuda.launches = before
+        if not all(torch.equal(a, b) for a, b in zip(shared, repeated)):
+            raise AssertionError("shared points differ from repeated "
+                                 "per-image points")
+        print(json.dumps({"phase": "kernel_vs_plain", "model": "bench",
+                          "points": "per_image", "n": n, "g": 8,
+                          "max_abs_err": err, "bitwise_repeat": True,
+                          "shared_equals_repeated": True}), flush=True)
+
+
+def _nrel(a, b) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def bf16_vs_plain(model, n: int, g: int, seed: int, device, f=None,
+                  per_image: bool = False) -> dict:
+    """The bf16 build against the plain bf16 version on the same inputs:
+    the loss and every packed leaf within BF16_GAP_SHARE of the plain
+    version's bf16-vs-FP32 gap, by (norm-)relative error (a build that
+    forgot to round is off by the whole gap); two launches bitwise equal.
+    Launches made here are taken out of the count again. Returns the
+    largest absolute error, the largest error/gap ratio and the smallest
+    gap."""
+    import torch
+
+    from awesome_tpu_torch.ops.flagship import (
+        PACKED_FIELDS,
+        FlagshipLossGrad,
+        flagship_loss_grad_cuda,
+        flagship_loss_grad_plain,
+        unpack_flat,
+    )
+
+    spec, flat, pts, tgt, wts = loss_grad_inputs(model, n, g, seed, device,
+                                                 per_image)
+    f = f or FlagshipLossGrad(spec, True, g, None, use_bf16=True)
+    before = flagship_loss_grad_cuda.launches_bf16
+    loss_k, grads_k = f.flat(flat, pts, tgt, wts)
+    loss_k2, grads_k2 = f.flat(flat, pts, tgt, wts)
+    flagship_loss_grad_cuda.launches_bf16 = before
+    packed = unpack_flat(spec, flat)
+    loss_p, grads_p = flagship_loss_grad_plain(spec, packed, pts, tgt, wts,
+                                               use_bf16=True)
+    loss_f, grads_f = flagship_loss_grad_plain(spec, packed, pts, tgt, wts)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss_k, loss_k2) and torch.equal(grads_k, grads_k2)):
+        raise AssertionError("two bf16 launches on the same inputs differ")
+    if not (torch.isfinite(loss_k).all() and torch.isfinite(grads_k).all()):
+        raise AssertionError("non-finite bf16 kernel output")
+    grads_k = unpack_flat(spec, grads_k)
+    pairs = [("loss", loss_k, loss_p, loss_f)] + [
+        (k, grads_k[k], grads_p[k], grads_f[k]) for k in PACKED_FIELDS]
+    worst, min_gap, abs_err = 0.0, float("inf"), 0.0
+    for name, got, ref, f32 in pairs:
+        gap = _nrel(ref, f32)
+        err = _nrel(got, ref)
+        if not (gap > 0.0 and err <= BF16_GAP_SHARE * gap):
+            raise AssertionError(f"bf16 {name}: error {err} against a "
+                                 f"bf16-vs-FP32 gap of {gap}")
+        worst, min_gap = max(worst, err / gap), min(min_gap, gap)
+        abs_err = max(abs_err, float((got - ref).abs().max()))
+    return {"max_abs_err": abs_err, "max_err_over_gap": worst,
+            "min_gap": min_gap}
+
+
+def bf16_checks(device) -> None:
+    t0 = time.perf_counter()
+    for name, shape, make, n, g, tp in (
+            ("bench 480x640", (480, 640), bench_model, 480 * 640, 1, 64),
+            ("bench 64x64", (64, 64), bench_model, 64 * 64, 8, 64),
+            ("deep (3-layer ICNN)", (64, 64),
+             functools.partial(bench_model, layers=3), 4097, 2, 32)):
+        model = make(shape, device)
+        res = bf16_vs_plain(model, n, g, 30 + g, device)
+        print(json.dumps(dict({"phase": "bf16_vs_plain", "model": name,
+                               "n": n, "g": g, "tp": tp,
+                               "bitwise_repeat": True}, **res)), flush=True)
+    print(f"bf16_vs_plain: ok in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def cuda_time_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events, after
     one warm-up call)."""
@@ -220,26 +355,29 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(spec, n: int, g: int) -> tuple:
+def bound_ms(spec, n: int, g: int, use_bf16: bool = False,
+             per_image: bool = False) -> tuple:
     """Least time the card needs for one fused loss+grad: the larger of
-    the FP32 operations (3 passes over every matrix, 2 FLOP per MAC;
-    elementwise tanh/exp/sigmoid not counted) at the FP32 peak, and the
-    bytes (points, targets, weights and params read once, grads and loss
-    written once) at the HBM rate."""
+    the operations (3 passes over every matrix, 2 FLOP per MAC;
+    elementwise tanh/exp/sigmoid not counted) at the FP32 peak (the bf16
+    build: at the dense bf16 tensor-core peak), and the bytes (points,
+    targets, weights and params read once, grads and loss written once)
+    at the HBM rate."""
     _, p_len = spec.offsets()
     f, h2, w, nl = spec.n_flows, 2 * spec.hidden, spec.icnn_w, spec.n_layers
     macs = f * (h2 * 2 + 4 * h2) + w * 2 + nl * w * (w + 2) + (w + 2)
     flops = 2.0 * 3.0 * macs * n * g
-    nbytes = 4.0 * (2 * n + 2 * g * n + g * p_len + g * (p_len + 1))
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    n_pts = n * g if per_image else n
+    nbytes = 4.0 * (2 * n_pts + 2 * g * n + g * p_len + g * (p_len + 1))
+    t_ops = flops / (PEAK_BF16_FLOPS if use_bf16 else PEAK_FP32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def kernel_entry(name, replaces, model, n, g, seed, launches, steps, reps,
-                 device):
-    """Time the kernel and the plain version at one shape and hold them
-    against each other there."""
+                 device, use_bf16=False, per_image=False):
+    """Time the kernel (or its bf16 build) and the plain version at one
+    shape and hold them against each other there."""
     from awesome_tpu_torch.ops.flagship import (
         FlagshipLossGrad,
         flagship_loss_grad_cuda,
@@ -247,24 +385,34 @@ def kernel_entry(name, replaces, model, n, g, seed, launches, steps, reps,
         unpack_flat,
     )
 
-    err = kernel_vs_plain(model, n, g, seed, device)
-    spec, flat, pts, tgt, wts = loss_grad_inputs(model, n, g, seed, device)
-    f = FlagshipLossGrad(spec, True, g, None)
-    before = flagship_loss_grad_cuda.launches
+    if use_bf16:
+        err = bf16_vs_plain(model, n, g, seed, device,
+                            per_image=per_image)["max_abs_err"]
+    else:
+        err = kernel_vs_plain(model, n, g, seed, device, per_image=per_image)
+    spec, flat, pts, tgt, wts = loss_grad_inputs(model, n, g, seed, device,
+                                                 per_image)
+    f = FlagshipLossGrad(spec, True, g, None, use_bf16=use_bf16)
+    before = (flagship_loss_grad_cuda.launches,
+              flagship_loss_grad_cuda.launches_bf16)
     ms = cuda_time_ms(lambda: f.flat(flat, pts, tgt, wts), reps)
-    flagship_loss_grad_cuda.launches = before
+    (flagship_loss_grad_cuda.launches,
+     flagship_loss_grad_cuda.launches_bf16) = before
     packed = unpack_flat(spec, flat)
     plain_ms = cuda_time_ms(
-        lambda: flagship_loss_grad_plain(spec, packed, pts, tgt, wts),
+        lambda: flagship_loss_grad_plain(spec, packed, pts, tgt, wts,
+                                         use_bf16=use_bf16),
         max(3, reps // 4))
-    b_ms, b_by = bound_ms(spec, n, g)
+    b_ms, b_by = bound_ms(spec, n, g, use_bf16, per_image)
     return {
         "name": name, "route": "cuda",
         "source": "awesome_tpu_torch/ops/csrc/flagship.cu",
         "replaces": replaces, "launches": launches, "steps": steps,
         "launches_per_step": launches / steps, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": {"n": n, "g": g},
+        "library_ms": None, "shape": {"n": n, "g": g,
+                                      "points": "per_image" if per_image
+                                      else "shared"},
     }
 
 
@@ -299,18 +447,15 @@ def device_profile(run, steps: int, ms_per_step: float) -> dict:
     }
 
 
-def main_path(steps: int, device):
-    """The flagship fused prior fit at 480x640 (bench model)."""
+def main_path(steps: int, device, use_bf16: bool = False):
+    """The flagship fused prior fit at 480x640 (bench model); with
+    ``use_bf16`` under ``compute_dtype=torch.bfloat16`` (the kernel's bf16
+    build)."""
     import torch
 
     from awesome_tpu_torch.core import grids as G
-    from awesome_tpu_torch.fit.prior_fit import (
-        FitConfig,
-        make_fit_fn,
-        run_fit_loop,
-    )
+    from awesome_tpu_torch.fit.prior_fit import FitConfig, make_fit_fn
     from awesome_tpu_torch.measures.metrics import iou
-    from awesome_tpu_torch.ops.flagship import flagship_loss_grad_cuda
 
     h, w = 480, 640
     model = bench_model((h, w), device)
@@ -318,18 +463,22 @@ def main_path(steps: int, device):
     target = ellipse_target(h, w, device)
     params = model.init(torch.Generator().manual_seed(2))
     cfg = FitConfig(num_steps=steps, lr=1e-3, nan_guard_grads=False,
-                    fused=True)
+                    fused=True,
+                    compute_dtype=torch.bfloat16 if use_bf16 else None)
     fit = make_fit_fn(model, cfg)
     # warm-up: loads the kernel and picks its launch shape
     make_fit_fn(model, dataclasses.replace(cfg, num_steps=2))(
         params, pts, target)
     torch.cuda.synchronize()
-    flagship_loss_grad_cuda.launches = run_fit_loop.steps = 0
+    zero_counts()
     t0 = time.perf_counter()
     fitted, aux = fit(params, pts, target)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches, ran = flagship_loss_grad_cuda.launches, run_fit_loop.steps
+    k1, k1_bf16, _, _, ran = counts()
+    launches = k1_bf16 if use_bf16 else k1
+    if (k1 if use_bf16 else k1_bf16) != 0:
+        raise AssertionError("the fit launched the other build")
     if ran != steps:
         raise AssertionError(f"the fit ran {ran} steps, asked {steps}")
     if launches != steps:
@@ -346,7 +495,8 @@ def main_path(steps: int, device):
     score = float(iou(prob > 0.5, target > 0.5, invert=True))
     short = make_fit_fn(model, dataclasses.replace(cfg, num_steps=PROF_STEPS))
     return model, launches, ran, {
-        "phase": "main_path", "shape": [h, w], "steps": ran,
+        "phase": "main_path_bf16" if use_bf16 else "main_path",
+        "shape": [h, w], "steps": ran,
         "seconds": dt, "ms_per_step": 1e3 * dt / steps,
         "point_steps_per_s": steps * pts.shape[0] / dt,
         "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
@@ -405,6 +555,165 @@ def batched_path(steps: int, device):
         "profile": device_profile(lambda: short(stacked, pts, targets),
                                   PROF_STEPS, 1e3 * dt / ran),
     }
+
+def bf16_batched_path(steps: int, device):
+    """The batched fused fit in the bf16 build with a point set per image
+    (K2's image stride): 8 images at 64x64, each on its own shifted grid,
+    with the gate."""
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.prior_fit import FitConfig, fit_priors_batched
+
+    h = w = 64
+    batch = 8
+    model = bench_model((h, w), device)
+    base = G.flatten_grid(G.pixel_grid((h, w), device=device))
+    shifts = [(0.02 * i - 0.08, 0.08 - 0.02 * i) for i in range(batch)]
+    # image i's (x, y) grid moved by its shift: every image fits the same
+    # ellipse target on points of its own
+    pts = torch.stack([base + torch.tensor([sx, sy], device=device)
+                       for sy, sx in shifts])
+    targets = torch.stack([ellipse_target(h, w, device)] * batch)
+    stacked = T.stack_trees([model.init(torch.Generator().manual_seed(80 + i))
+                             for i in range(batch)])
+    cfg = FitConfig(num_steps=steps, lr=1e-3, nan_guard_grads=False,
+                    fused=True, gate_threshold=0.5,
+                    compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    _, aux = fit_priors_batched(model, stacked, pts, targets, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1, k1_bf16, _, _, ran = counts()
+    if ran != steps or k1_bf16 != steps or k1 != 0:
+        raise AssertionError(f"batched bf16 fit: {k1_bf16} bf16 and {k1} "
+                             f"FP32 launches in {ran} steps")
+    hist = aux["loss_hist"].cpu().numpy()
+    for b in range(batch):
+        check_hist(hist[b], f"the batched bf16 fit (image {b})")
+    gate = aux["gate_iou"].cpu().numpy()
+    return model, k1_bf16, ran, {
+        "phase": "batched_bf16_per_image_points", "images": batch,
+        "shape": [h, w], "steps": ran, "seconds": dt,
+        "ms_per_step": 1e3 * dt / ran, "gate_iou": [float(v) for v in gate],
+        "gate_pass": int((gate >= 0.5).sum()), "kernel_launches": k1_bf16,
+    }
+
+
+def flagship_wrapper(h: int, w: int, device):
+    """``__graft_entry__._flagship`` in the port: a full-width UNet(4, 1)
+    and the bench-model prior (flow 32 x 12 with tanh, ICNN 130 x 2) in an
+    image-mode WrapperModule on the clean grid, the UNet stateful."""
+    from awesome_tpu_torch.nn.seg import UNet
+    from awesome_tpu_torch.nn.wrapper import WrapperModule
+
+    return WrapperModule(
+        segmentation_module=UNet(in_chn=4, out_chn=1, device=device),
+        prior_module=bench_model((h, w), device),
+        input_mode="image", prior_arg_mode="param_clean_grid",
+        seg_stateful=True)
+
+
+def joint_data(h: int, w: int, t: int, seed: int, device) -> dict:
+    """``t`` images (uniform noise plus a brighter ellipse), features,
+    the clean grid and the ellipse targets (fg encoded 0)."""
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+
+    gen = torch.Generator().manual_seed(seed)
+    tgt = torch.stack([ellipse_target(h, w, "cpu", (0.02 * i, -0.02 * i))
+                       .reshape(h, w, 1) for i in range(t)])
+    image = 0.5 * torch.rand((t, h, w, 3), generator=gen) + 0.5 * (1 - tgt)
+    feats = torch.rand((t, h, w, 1), generator=gen)
+    return {"image": image.to(device), "features": feats.to(device),
+            "target": tgt.to(device),
+            "grid": G.flatten_grid(G.pixel_grid((h, w), device=device))}
+
+
+def joint_path(device, small=(64, 64), images=8, batch=4, epochs=10,
+               large=(480, 640), large_images=2, large_steps=3):
+    """Joint training of the flagship wrapper with ``JointTrainConfig()``:
+    ``epochs`` epochs over ``images`` images of ``small`` size in batches
+    of ``batch`` (the epoch fn), then ``large_steps`` steps on
+    ``large_images`` images of ``large`` size. Finite losses, decreasing
+    at the small size (first epoch's mean against the last's)."""
+    import numpy as _np
+    import torch
+
+    from awesome_tpu_torch.fit.trainer import (
+        JointTrainConfig,
+        epoch_batches,
+        joint_train_init,
+        make_joint_epoch_fn,
+        make_joint_train_step,
+    )
+
+    cfg = JointTrainConfig()
+    out = {"phase": "joint_path", "config": dataclasses.asdict(cfg)}
+    wrapper = flagship_wrapper(*small, device)
+    data = joint_data(*small, images, 3, device)
+    state = joint_train_init(wrapper, torch.Generator().manual_seed(4),
+                             images, cfg)
+    epoch = make_joint_epoch_fn(wrapper, cfg)
+    rng = _np.random.default_rng(0)
+    plans = [epoch_batches(images, batch, rng) for _ in range(epochs)]
+    losses, times = [], []
+    for idx, wgt in plans:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = epoch(state, data, idx, wgt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(met["loss"].cpu().numpy())
+    hist = _np.concatenate(losses)
+    if not _np.isfinite(hist).all():
+        raise AssertionError("non-finite loss in joint training")
+    if not losses[-1].mean() < losses[0].mean():
+        raise AssertionError(f"joint loss did not decrease: "
+                             f"{losses[0].mean()} -> {losses[-1].mean()}")
+    per_epoch = len(plans[0][0])
+    ms = 1e3 * sum(times[1:]) / (per_epoch * (len(times) - 1))
+    idx, wgt = plans[0]
+    out["small"] = {
+        "shape": list(small), "images": images, "batch": batch,
+        "steps": int(state.step), "loss": [float(v) for v in hist],
+        "ms_per_step": ms, "first_epoch_s": times[0],
+        "profile": device_profile(lambda: epoch(state, data, idx, wgt),
+                                  per_epoch, ms),
+    }
+    wrapper = flagship_wrapper(*large, device)
+    data = joint_data(*large, large_images, 5, device)
+    state = joint_train_init(wrapper, torch.Generator().manual_seed(6),
+                             large_images, cfg)
+    step = make_joint_train_step(wrapper, cfg)
+    batch_l = {k: data[k] for k in ("image", "features", "grid", "target")}
+    batch_l["index"] = torch.arange(large_images, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(large_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch_l)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    if not _np.isfinite(losses).all():
+        raise AssertionError("non-finite loss in joint training at "
+                             f"{large}")
+    ms = 1e3 * sum(times[1:]) / max(len(times) - 1, 1)
+    out["large"] = {
+        "shape": list(large), "images": large_images,
+        "steps": int(state.step), "loss": losses, "ms_per_step": ms,
+        "first_step_s": times[0],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "profile": device_profile(lambda: step(state, batch_l), 1, ms),
+    }
+    return out
+
 
 # (what it serves, width, hidden layers, in_features) of the ICNNs the
 # fused ICNN kernels take
@@ -531,39 +840,44 @@ def icnn_checks(device) -> None:
           flush=True)
 
 
-def k3_path(steps: int, device):
+def k3_path(steps: int, device, use_bf16: bool = False):
     """K3, ``interleave=True``: the grouped loss+grad against the plain
-    version, then a grouped fit that must equal ``interleave=False``."""
+    version, then a grouped fit that must equal ``interleave=False``; with
+    ``use_bf16`` both in the bf16 build (``compute_dtype``)."""
     import torch
 
     from awesome_tpu_torch.core import grids as G
     from awesome_tpu_torch.core import tree as T
     from awesome_tpu_torch.fit.fused_fit import make_grouped_fused_fit_fn
-    from awesome_tpu_torch.fit.prior_fit import FitConfig, run_fit_loop
-    from awesome_tpu_torch.ops.flagship import (
-        flagship_loss_grad_cuda,
-        make_flagship_loss_grad,
-    )
+    from awesome_tpu_torch.fit.prior_fit import FitConfig
+    from awesome_tpu_torch.ops.flagship import make_flagship_loss_grad
 
     h = w = 64
     model = bench_model((h, w), device)
-    f = make_flagship_loss_grad(model, group=2, interleave=True)
-    errs = [kernel_vs_plain(model, n, 2, 40 + n % 7, device, f=f)
-            for n in (4096, 4097)]
+    f = make_flagship_loss_grad(model, group=2, interleave=True,
+                                use_bf16=use_bf16)
+    if use_bf16:
+        errs = [bf16_vs_plain(model, n, 2, 40 + n % 7, device,
+                              f=f)["max_abs_err"] for n in (4096, 4097)]
+    else:
+        errs = [kernel_vs_plain(model, n, 2, 40 + n % 7, device, f=f)
+                for n in (4096, 4097)]
     pts = G.flatten_grid(G.pixel_grid((h, w), device=device))
     targets = torch.stack([ellipse_target(h, w, device, (0.1 * i, -0.1 * i))
                            for i in range(2)])
     stacked = T.stack_trees([model.init(torch.Generator().manual_seed(30 + i))
                              for i in range(2)])
-    cfg = FitConfig(num_steps=steps, lr=1e-3, nan_guard_grads=False)
+    cfg = FitConfig(num_steps=steps, lr=1e-3, nan_guard_grads=False,
+                    compute_dtype=torch.bfloat16 if use_bf16 else None)
     fit_i = make_grouped_fused_fit_fn(model, cfg, group=2, interleave=True)
     fit_p = make_grouped_fused_fit_fn(model, cfg, group=2)
     torch.cuda.synchronize()
-    flagship_loss_grad_cuda.launches = run_fit_loop.steps = 0
+    zero_counts()
     got, aux = fit_i(stacked, pts, targets)
     torch.cuda.synchronize()
-    launches, ran = flagship_loss_grad_cuda.launches, run_fit_loop.steps
-    if ran != steps or launches != steps:
+    k1, k1_bf16, _, _, ran = counts()
+    launches = k1_bf16 if use_bf16 else k1
+    if ran != steps or launches != steps or k1 + k1_bf16 != steps:
         raise AssertionError(f"interleaved fit: {launches} launches in "
                              f"{ran} steps")
     ref, ref_aux = fit_p(stacked, pts, targets)
@@ -574,7 +888,8 @@ def k3_path(steps: int, device):
     if not same:
         raise AssertionError("interleave=True differs from interleave=False")
     return model, launches, ran, {
-        "phase": "k3_interleave", "g": 2, "shape": [h, w],
+        "phase": "k3_interleave_bf16" if use_bf16 else "k3_interleave",
+        "g": 2, "shape": [h, w],
         "max_abs_err_4096": errs[0], "max_abs_err_4097": errs[1],
         "steps": ran, "kernel_launches": launches,
         "bitwise_equal_to_interleave_false": True,
@@ -582,13 +897,16 @@ def k3_path(steps: int, device):
 
 
 def counts():
-    """(K1/K2 launches, K4 launches, K5 launches, fit steps)."""
+    """(K1/K2 launches, their bf16 build's launches, K4 launches, K5
+    launches, fit steps)."""
     from awesome_tpu_torch.fit.prior_fit import run_fit_loop
     from awesome_tpu_torch.ops import mlp
     from awesome_tpu_torch.ops.flagship import flagship_loss_grad_cuda
 
-    return (flagship_loss_grad_cuda.launches, mlp.icnn_forward_cuda.launches,
-            mlp.icnn_backward_cuda.launches, run_fit_loop.steps)
+    return (flagship_loss_grad_cuda.launches,
+            flagship_loss_grad_cuda.launches_bf16,
+            mlp.icnn_forward_cuda.launches, mlp.icnn_backward_cuda.launches,
+            run_fit_loop.steps)
 
 
 def zero_counts() -> None:
@@ -597,6 +915,7 @@ def zero_counts() -> None:
     from awesome_tpu_torch.ops.flagship import flagship_loss_grad_cuda
 
     flagship_loss_grad_cuda.launches = run_fit_loop.steps = 0
+    flagship_loss_grad_cuda.launches_bf16 = 0
     mlp.icnn_forward_cuda.launches = mlp.icnn_backward_cuda.launches = 0
 
 
@@ -664,7 +983,7 @@ def convex_path(steps: int, device):
     fitted, aux = fit_prior(model, params, pts, target, cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    _, k4, k5, ran = counts()
+    _, _, k4, k5, ran = counts()
     if not k4 == k5 == ran == steps:
         raise AssertionError(f"convex fit: K4 {k4}, K5 {k5} launches in "
                              f"{ran} steps")
@@ -716,7 +1035,7 @@ def batched_convex_path(steps: int, device):
     _, aux = run(stacked, pts, targets, retry_keys=list(range(200, 208)))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    _, k4, k5, ran = counts()
+    _, _, k4, k5, ran = counts()
     # the fit and the retry pass, and one vmapped K4 per gate pass (the
     # scores and the retry's scores)
     if ran != 2 * steps or k5 != ran or k4 != ran + 2:
@@ -794,7 +1113,7 @@ def sequential_path(kind: str, device):
         valid_mask=valid, point_masks=masks)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    k1, k4, k5, ran = counts()
+    k1, _, k4, k5, ran = counts()
     want = cold + (b - 1) * warm
     launched = k1 if kind == "flagship" else min(k4, k5)
     if ran != want or launched != want or (kind == "convex" and k4 != k5):
@@ -925,10 +1244,14 @@ def main() -> int:
                                   "n": n, "g": g, "tp": shape.tp,
                                   "smem": shape.smem, "max_abs_err": err,
                                   "bitwise_repeat": True}), flush=True)
+    per_image_checks(dev)
     print(f"kernel_vs_plain: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    bf16_checks(dev)
     icnn_checks(dev)
     k3_model, k3_launches, k3_steps, res = k3_path(K3_STEPS, dev)
+    print(json.dumps(res), flush=True)
+    _, _, _, res = k3_path(K3_STEPS, dev, use_bf16=True)
     print(json.dumps(res), flush=True)
 
     model, main_launches, main_steps, res = main_path(STEPS, dev)
@@ -941,6 +1264,13 @@ def main() -> int:
     print(json.dumps(res), flush=True)
     for kind in ("flagship", "convex"):
         print(json.dumps(sequential_path(kind, dev)), flush=True)
+    bf_model, bf_launches, bf_steps, res = main_path(STEPS, dev,
+                                                     use_bf16=True)
+    print(json.dumps(res), flush=True)
+    bb_model, bb_launches, bb_steps, res = bf16_batched_path(
+        BF16_BATCH_STEPS, dev)
+    print(json.dumps(res), flush=True)
+    print(json.dumps(joint_path(dev)), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
@@ -952,6 +1282,13 @@ def main() -> int:
                      "K2 kernel)", "awesome_tpu/ops/pallas_flagship.py:459",
                      k3_model, 64 * 64, 2, 11, k3_launches, k3_steps, 50,
                      dev),
+        kernel_entry("flagship_loss_grad use_bf16=True (K1 bf16 build, "
+                     "G=1)", replaces, bf_model, 480 * 640, 1, 7,
+                     bf_launches, bf_steps, 20, dev, use_bf16=True),
+        kernel_entry("flagship_loss_grad use_bf16=True (K2 bf16 build, "
+                     "G=8, per-image points)", replaces, bb_model, 64 * 64,
+                     8, 9, bb_launches, bb_steps, 50, dev, use_bf16=True,
+                     per_image=True),
     ] + icnn_entries(k4, k5, convex_steps, 50, dev)
     print("library: no single PyTorch call computes the fused flagship loss "
           "and gradient, a fused ICNN forward, or its weight grads; "

@@ -194,6 +194,8 @@ def test_nan_guard_is_per_image():
 
 
 def test_grouped_fused_fit_matches_single():
+    """The grouped fused fit equals each image's single fused fit, in the
+    FP32 and in the bf16 build (``compute_dtype``)."""
     h = w = 12
     _, tm = _models(h, w, flows=2, icnn=8, layers=1)
     g = 2
@@ -201,22 +203,22 @@ def test_grouped_fused_fit_matches_single():
                               for i in range(g)])
     pts = torch.tensor(np.asarray(JG.flatten_grid(JG.pixel_grid((h, w)))))
     tgts = torch.tensor(np.stack([_disk(h, w, 5, 5, 3), _disk(h, w, 7, 7, 3)]))
-    cfg = TF.FitConfig(num_steps=20, lr=1e-3, nan_guard_grads=False)
-    g_params, g_aux = make_grouped_fused_fit_fn(tm, cfg, group=g)(
-        stacked, pts, tgts)
-    assert g_aux["loss_hist"].shape == (20, g)
-    single = make_fused_fit_fn(tm, cfg)
-    for i in range(g):
-        s_params, s_aux = single(TT.tree_select(stacked, i), pts, tgts[i])
-        np.testing.assert_allclose(g_aux["loss_hist"][:, i].numpy(),
-                                   s_aux["loss_hist"].numpy(), rtol=2e-4)
-        for a, b in zip(TT.tree_leaves(TT.tree_select(g_params, i)),
-                        TT.tree_leaves(s_params)):
-            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
-                                       atol=2e-6)
-    with pytest.raises(NotImplementedError):
-        TF.make_fit_fn(tm, dataclasses.replace(cfg,
-                                               compute_dtype=torch.bfloat16))
+    base = TF.FitConfig(num_steps=20, lr=1e-3, nan_guard_grads=False)
+    for cfg in (base, dataclasses.replace(base,
+                                          compute_dtype=torch.bfloat16)):
+        g_params, g_aux = make_grouped_fused_fit_fn(tm, cfg, group=g)(
+            stacked, pts, tgts)
+        assert g_aux["loss_hist"].shape == (20, g)
+        single = make_fused_fit_fn(tm, cfg)
+        for i in range(g):
+            s_params, s_aux = single(TT.tree_select(stacked, i), pts,
+                                     tgts[i])
+            np.testing.assert_allclose(g_aux["loss_hist"][:, i].numpy(),
+                                       s_aux["loss_hist"].numpy(), rtol=2e-4)
+            for a, b in zip(TT.tree_leaves(TT.tree_select(g_params, i)),
+                            TT.tree_leaves(s_params)):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
+                                           atol=2e-6)
 
 
 @pytest.mark.parametrize("nan_target", [False, True])

@@ -4,7 +4,12 @@ On the CPU the wrapper runs its plain PyTorch version; it is held to
 ``jax.value_and_grad`` of the JAX model and to the JAX Pallas kernel in
 interpret mode (loss rtol 2e-5, grads rtol 5e-4 atol 1e-6, the JAX suite's
 own tolerances). The CUDA kernel itself is held to the plain version on
-the card by ``tests/test_torch_kernel_gpu.py`` and ``chip_smoke.py``."""
+the card by ``tests/test_torch_kernel_gpu.py`` and ``chip_smoke.py``.
+
+The bf16 build (``use_bf16``) is held to the JAX kernel's bf16 build by
+norm-relative error, leaf by leaf: each error must stay under a tenth of
+the gap between that kernel's bf16 and FP32 results on the same inputs
+(a build that forgot to round is off by the whole gap)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -215,8 +220,7 @@ def test_rejections():
           torch.zeros((0, 1)))
     with pytest.raises(ValueError):
         TP.make_flagship_loss_grad(tm, interleave=True)
-    with pytest.raises(NotImplementedError):
-        TP.make_flagship_loss_grad(tm, use_bf16=True)
+    assert TP.make_flagship_loss_grad(tm, use_bf16=True).use_bf16
     sig = t_factory(channels=2, hidden_units=8, flow_n_flows=2,
                     flow_output_fn="sigmoid", spatial_shape=(8, 8),
                     device=CPU)
@@ -236,6 +240,12 @@ def test_rejections():
                                    torch.zeros((4, 2), dtype=torch.float64),
                                    torch.zeros((1, 4)), torch.zeros((1, 4)),
                                    True, shape)
+    # per-image points must come one set per image
+    with pytest.raises(ValueError, match="expected contiguous"):
+        TP.flagship_loss_grad_cuda(spec, torch.zeros((1, p_len)),
+                                   torch.zeros((3, 4, 2)),
+                                   torch.zeros((1, 4)), torch.zeros((1, 4)),
+                                   True, shape)
 
 
 def test_packed_weight_decay_and_convexity():
@@ -250,3 +260,145 @@ def test_packed_weight_decay_and_convexity():
             params_to_numpy(TP.unpack_flagship(tm, clipped))),
             jax.tree_util.tree_leaves(params_to_numpy(tree))):
         np.testing.assert_array_equal(a, b)
+
+
+def _nrel(a, b) -> float:
+    a, b = np.ravel(np.asarray(a)), np.ravel(np.asarray(b))
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _assert_bf16_close(loss, grads, ref, ref_f32):
+    """The bf16 accuracy rule: loss and every leaf within a tenth of the
+    reference's bf16-vs-FP32 gap, by (norm-)relative error."""
+    (r_loss, r_grads), (f_loss, f_grads) = ref, ref_f32
+    gap = _nrel(r_loss, f_loss)
+    assert gap > 0.0
+    assert _nrel(np.asarray(loss).reshape(np.shape(r_loss)), r_loss) \
+        <= 0.1 * gap
+    for name in TP.PACKED_FIELDS:
+        gap = _nrel(r_grads[name], f_grads[name])
+        assert gap > 0.0, name
+        assert _nrel(grads[name], r_grads[name]) <= 0.1 * gap, name
+
+
+@pytest.mark.parametrize("group,interleave", [(1, False), (2, False),
+                                              (2, True)])
+def test_bf16_plain_matches_jax_bf16_kernel(group, interleave):
+    """``use_bf16=True`` against the JAX kernel's bf16 build in interpret
+    mode: G = 1, G = 2 and ``interleave=True`` (``_kernel_interleaved``)."""
+    jm, tm = _models(h=12, w=12, flows=2, hidden=8, icnn=8, layers=1)
+    jpacks, packs, tgts, wgts = [], [], [], []
+    for g in range(group):
+        jp = _params(jm, 50 + g)
+        jpacks.append(JP.pack_flagship(
+            jm, jax.tree_util.tree_map(jnp.asarray, jp)))
+        packs.append(TP.pack_flagship(tm, params_from_jax(jp, device=CPU)))
+        pts, tgt, wts = _data(12, 12, shift=2 * g)
+        tgts.append(tgt)
+        wgts.append(wts)
+    if group > 1:
+        args = ({k: jnp.stack([p[k] for p in jpacks]) for k in jpacks[0]},
+                jnp.asarray(pts), jnp.asarray(np.stack(tgts)),
+                jnp.asarray(np.stack(wgts)))
+        targs = ({k: torch.stack([p[k] for p in packs]) for k in packs[0]},
+                 torch.tensor(pts), torch.tensor(np.stack(tgts)),
+                 torch.tensor(np.stack(wgts)))
+    else:
+        args = (jpacks[0], jnp.asarray(pts), jnp.asarray(tgts[0]),
+                jnp.asarray(wgts[0]))
+        targs = (packs[0], torch.tensor(pts), torch.tensor(tgts[0]),
+                 torch.tensor(wgts[0]))
+    ref, ref_f32 = (JP.make_flagship_loss_grad(
+        jm, tile_n=64, interpret=True, group=group, interleave=interleave,
+        use_bf16=bf16)(*args) for bf16 in (True, False))
+    f = TP.make_flagship_loss_grad(tm, group=group, interleave=interleave,
+                                   use_bf16=True)
+    loss, grads = f(*targs)
+    _assert_bf16_close(loss.numpy(), {k: v.numpy() for k, v in grads.items()},
+                       ref, ref_f32)
+
+
+@pytest.mark.parametrize("n,use_bf16", [(None, False), (97, False),
+                                        (None, True)])
+def test_per_image_points_match_jax_vmapped_kernel(n, use_bf16):
+    """Per-image points (G, N, 2) on the grouped call against ``jax.vmap``
+    of the JAX kernel over params, points and targets (what the JAX
+    batched fused fit with per-image points runs); full grid, ragged N,
+    and the bf16 build."""
+    jm, tm = _models(h=12, w=12, flows=2, hidden=8, icnn=8, layers=1)
+    rng = np.random.default_rng(7)
+    g = 3
+    jps = [_params(jm, 60 + i) for i in range(g)]
+    data = [_data(12, 12, n=n, shift=i) for i in range(g)]
+    pts = np.stack([d[0] + rng.normal(scale=0.3, size=d[0].shape)
+                    .astype(np.float32) for d in data])
+    tgts = np.stack([d[1] for d in data])
+    wgts = np.stack([d[2] for d in data])
+    jpacked = jax.tree_util.tree_map(
+        lambda *xs: jnp.stack(xs),
+        *[JP.pack_flagship(jm, jax.tree_util.tree_map(jnp.asarray, jp))
+          for jp in jps])
+
+    def jax_run(bf16):
+        kern = JP.make_flagship_loss_grad(jm, tile_n=64, interpret=True,
+                                          use_bf16=bf16)
+        return jax.vmap(kern)(jpacked, jnp.asarray(pts), jnp.asarray(tgts),
+                              jnp.asarray(wgts))
+
+    f = TP.make_flagship_loss_grad(tm, group=g, use_bf16=use_bf16)
+    stacked = {k: torch.stack([TP.pack_flagship(
+        tm, params_from_jax(jp, device=CPU))[k] for jp in jps])
+        for k in TP.PACKED_FIELDS}
+    loss, grads = f(stacked, torch.tensor(pts), torch.tensor(tgts),
+                    torch.tensor(wgts))
+    ref = jax_run(use_bf16)
+    if use_bf16:
+        _assert_bf16_close(loss.numpy(),
+                           {k: v.numpy() for k, v in grads.items()},
+                           ref, jax_run(False))
+        return
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref[0]).reshape(g),
+                               rtol=LOSS_RTOL)
+    for name in TP.PACKED_FIELDS:
+        np.testing.assert_allclose(grads[name].numpy(),
+                                   np.asarray(ref[1][name]),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_per_image_points_equal_shared_when_repeated():
+    """The same point set given once per image gives exactly what the
+    shared points give."""
+    jm, tm = _models(h=12, w=12, flows=2, hidden=8, icnn=8, layers=1)
+    f = TP.make_flagship_loss_grad(tm, group=2)
+    stacked = {k: torch.stack([TP.pack_flagship(
+        tm, params_from_jax(_params(jm, 70 + i), device=CPU))[k]
+        for i in range(2)]) for k in TP.PACKED_FIELDS}
+    pts, tgt, wts = _data(12, 12)
+    x = torch.tensor(pts)
+    t2 = torch.tensor(np.stack([tgt] * 2))
+    w2 = torch.tensor(np.stack([wts] * 2))
+    loss, grads = f(stacked, x, t2, w2)
+    loss_p, grads_p = f(stacked, torch.stack([x, x]), t2, w2)
+    assert torch.equal(loss, loss_p)
+    for k in TP.PACKED_FIELDS:
+        assert torch.equal(grads[k], grads_p[k])
+
+
+def test_rounded_matmul_rounds_operands_and_cotangents():
+    """RoundedMatmul's value and grads are the products of bf16-rounded
+    operands (and cotangent), summed in FP32."""
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((3, 5, 7), generator=gen, requires_grad=True)
+    b = torch.randn((1, 7, 4), generator=gen, requires_grad=True)
+    g = torch.randn((3, 5, 4), generator=gen)
+    out = TP.RoundedMatmul.apply(a, b)
+    ga, gb = torch.autograd.grad(out, (a, b), g)
+
+    def r(t):
+        return t.detach().to(torch.bfloat16).to(torch.float32)
+
+    torch.testing.assert_close(out, r(a) @ r(b), rtol=0, atol=0)
+    torch.testing.assert_close(ga, r(g) @ r(b).mT, rtol=0, atol=0)
+    torch.testing.assert_close(gb, (r(a).mT @ r(g)).sum(0, keepdim=True),
+                               rtol=0, atol=0)
+    assert not torch.equal(out, a.detach() @ b.detach())

@@ -25,6 +25,36 @@ def cuda_device():
     return "cuda"
 
 
+def _flagship_inputs(device, width, layers, seed, g=2, n=4097,
+                     per_image=False):
+    """The bench model's flow with an ICNN of ``width`` x ``layers``, G
+    perturbed param rows, points (N, 2) or (G, N, 2), targets, weights."""
+    tm = t_factory(channels=2, hidden_units=32, flow_n_flows=12,
+                   flow_output_fn="tanh", spatial_shape=(64, 64),
+                   convex_net_hidden_units=width,
+                   convex_net_hidden_layers=layers, device=device)
+    spec = TP.FlagshipSpec.of(tm)
+    gen = torch.Generator().manual_seed(seed)
+    packs = [TP.pack_flagship(tm, TT.tree_map(
+        lambda a: a + 0.05 * torch.randn(a.shape, generator=gen).to(a.device),
+        tm.init(gen))) for _ in range(g)]
+    stacked = {k: torch.stack([p[k] for p in packs]) for k in packs[0]}
+    flat = TP.pack_flat(stacked, g).contiguous()
+    x = torch.rand((g, n, 2) if per_image else (n, 2),
+                   generator=gen).to(device)
+    tgt = (torch.rand((g, n), generator=gen) > 0.5).float().to(device)
+    wts = torch.full((g, n), 1.0 / n, device=device)
+    return spec, stacked, flat, x, tgt, wts
+
+
+def _assert_fp32_close(loss, grads, ref_loss, ref, g):
+    np.testing.assert_allclose(loss.cpu().numpy(), ref_loss.cpu().numpy(),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(grads.cpu().numpy(),
+                               TP.pack_flat(ref, g).cpu().numpy(),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("width,layers,tp", [(130, 2, 64), (130, 3, 32),
                                              (50, 2, 64), (150, 2, 32)])
@@ -34,32 +64,65 @@ def test_cuda_kernel_matches_plain(cuda_device, width, layers, tp):
     two layers takes 64-point chunks; a third layer, or width 150, no
     longer fits them in shared memory and takes the 32-point
     instantiation. Width 50 is a narrow ICNN."""
-    tm = t_factory(channels=2, hidden_units=32, flow_n_flows=12,
-                   flow_output_fn="tanh", spatial_shape=(64, 64),
-                   convex_net_hidden_units=width,
-                   convex_net_hidden_layers=layers, device=cuda_device)
-    spec = TP.FlagshipSpec.of(tm)
-    gen = torch.Generator().manual_seed(0)
-    packs = [TP.pack_flagship(tm, TT.tree_map(
-        lambda a: a + 0.05 * torch.randn(a.shape, generator=gen).to(a.device),
-        tm.init(gen))) for _ in range(2)]
-    stacked = {k: torch.stack([p[k] for p in packs]) for k in packs[0]}
-    flat = TP.pack_flat(stacked, 2).contiguous()
-    n = 4097
-    x = torch.rand((n, 2), generator=gen).to(cuda_device)
-    tgt = (torch.rand((2, n), generator=gen) > 0.5).float().to(cuda_device)
-    wts = torch.full((2, n), 1.0 / n, device=cuda_device)
-    assert TP.launch_shape(spec, n, 2, None, x.device).tp == tp
+    spec, stacked, flat, x, tgt, wts = _flagship_inputs(cuda_device, width,
+                                                        layers, 0)
+    assert TP.launch_shape(spec, x.shape[0], 2, None, x.device).tp == tp
     f = TP.FlagshipLossGrad(spec, True, 2, None)
     loss, grads = f.flat(flat, x, tgt, wts)
     loss2, grads2 = f.flat(flat, x, tgt, wts)
     assert torch.equal(loss, loss2) and torch.equal(grads, grads2)
     ref_loss, ref = TP.flagship_loss_grad_plain(spec, stacked, x, tgt, wts)
-    np.testing.assert_allclose(loss.cpu().numpy(), ref_loss.cpu().numpy(),
-                               rtol=LOSS_RTOL)
-    np.testing.assert_allclose(grads.cpu().numpy(),
-                               TP.pack_flat(ref, 2).cpu().numpy(),
-                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    _assert_fp32_close(loss, grads, ref_loss, ref, 2)
+
+
+def _nrel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,layers,tp", [(130, 2, 64), (130, 3, 32)])
+def test_cuda_bf16_kernel_matches_plain(cuda_device, width, layers, tp):
+    """The bf16 build against the plain bf16 version (both ICNN depths, so
+    both tile instantiations): the loss and every packed leaf within a
+    tenth of the plain version's bf16-vs-FP32 gap, by (norm-)relative
+    error; two launches bitwise equal."""
+    spec, stacked, flat, x, tgt, wts = _flagship_inputs(
+        cuda_device, width, layers, width + layers + 2)
+    assert TP.launch_shape(spec, x.shape[0], 2, None, x.device,
+                           use_bf16=True).tp == tp
+    f = TP.FlagshipLossGrad(spec, True, 2, None, use_bf16=True)
+    loss, grads = f.flat(flat, x, tgt, wts)
+    loss2, grads2 = f.flat(flat, x, tgt, wts)
+    assert torch.equal(loss, loss2) and torch.equal(grads, grads2)
+    ref_loss, ref = TP.flagship_loss_grad_plain(spec, stacked, x, tgt, wts,
+                                                use_bf16=True)
+    f32_loss, f32 = TP.flagship_loss_grad_plain(spec, stacked, x, tgt, wts)
+    gap = _nrel(ref_loss, f32_loss)
+    assert gap > 0.0 and _nrel(loss, ref_loss) <= 0.1 * gap
+    got = TP.unpack_flat(spec, grads)
+    for name in TP.PACKED_FIELDS:
+        gap = _nrel(ref[name], f32[name])
+        assert gap > 0.0, name
+        assert _nrel(got[name], ref[name]) <= 0.1 * gap, name
+
+
+@pytest.mark.gpu
+def test_cuda_per_image_points_match_plain(cuda_device):
+    """Per-image points (G, N, 2) against the plain version (ragged N, G =
+    3); the shared-point launch is bitwise equal to a per-image launch
+    with the same points repeated for every image."""
+    spec, stacked, flat, x, tgt, wts = _flagship_inputs(
+        cuda_device, 130, 2, 135, g=3, per_image=True)
+    f = TP.FlagshipLossGrad(spec, True, 3, None)
+    loss, grads = f.flat(flat, x, tgt, wts)
+    ref_loss, ref = TP.flagship_loss_grad_plain(spec, stacked, x, tgt, wts)
+    _assert_fp32_close(loss, grads, ref_loss, ref, 3)
+    shared = x[1].contiguous()
+    loss_s, grads_s = f.flat(flat, shared, tgt, wts)
+    loss_r, grads_r = f.flat(flat, shared.expand(3, -1, -1).contiguous(),
+                             tgt, wts)
+    assert torch.equal(loss_s, loss_r) and torch.equal(grads_s, grads_r)
 
 
 @pytest.mark.gpu

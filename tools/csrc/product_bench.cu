@@ -54,9 +54,10 @@ __global__ void __launch_bounds__(NT, 1)
   const long long t0 = clock64();
   for (int r = 0; r < reps; ++r) {
     using namespace tf32x3;
-    if constexpr (R == FWD) mm_rows<TP>(M, K, A, K, 1, B, As, store);
-    if constexpr (R == BWD) mm_rows<TP>(M, K, A, 1, M, B, As, store);
-    if constexpr (R == WGRAD) wgrad_tiled<TP>(M, K, B2, B, out, K, r == 0);
+    if constexpr (R == FWD) mm_rows<TP, false>(M, K, A, K, 1, B, As, store);
+    if constexpr (R == BWD) mm_rows<TP, false>(M, K, A, 1, M, B, As, store);
+    if constexpr (R == WGRAD)
+      wgrad_tiled<TP, false>(M, K, B2, B, out, K, r == 0);
     if constexpr (R == TC_FWD) mm_rows_tc<TP>(M, K, A, K, 1, B, As, store);
     if constexpr (R == TC_BWD) mm_rows_tc<TP>(M, K, A, 1, M, B, As, store);
     if constexpr (R == TC_WGRAD) wgrad_tc<TP>(M, K, B2, B, out, K, r == 0);

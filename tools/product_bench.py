@@ -80,8 +80,9 @@ MODES = ("ffma", "mma_tf32", "mma_tf32_split", "mma_bf16", "mma_chain",
 # (text, replacement) in the FMA routine and in the 3xTF32 routine
 FETCH = [("? __ldcg(A + (size_t)m * sr + (size_t)c * sc)",
           "? (float)(m - c)")]
-STASH = [("if (idx < KB * T::RT) dst[cc * T::ASTR + r] = pre[l];",
-          "if (idx < KB * T::RT && M < 0) dst[cc * T::ASTR + r] = pre[l];"),
+STASH = [("if (idx < KB * T::RT) dst[cc * T::ASTR + r] = op<BF16>(pre[l]);",
+          "if (idx < KB * T::RT && M < 0)\n          dst[cc * T::ASTR + r] = "
+          "op<BF16>(pre[l]);"),
          ("if (idx < KB * T::RT)\n          split_tf32(",
           "if (idx < KB * T::RT && M < 0)\n          split_tf32(")]
 BAR = [("stash(As + ((s + 1) & 1) * T::SLAB);\n      __syncthreads();",
