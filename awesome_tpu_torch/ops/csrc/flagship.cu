@@ -25,18 +25,22 @@
 // - all of it as FP32 FMAs at the card's 67 TFLOP/s: ~1.08 ms;
 // - the products on the TF32 tensor cores, three MMAs each for FP32
 //   accuracy (3xTF32) at 495 TFLOP/s, the rest as FP32 FMAs: ~0.53 ms.
-// The arithmetic is plain FP32 FMAs (the TPU reference pins full f32), at
-// ~7x the first bound. A 3xTF32 `mma.sync` design of the products kept
-// FP32 accuracy but made the kernel 1-2% slower (`PERF.md`, Findings;
-// its routines are in `tools/csrc/mma_tf32_trial.cuh`, and
-// `tools/product_bench.py` times them beside the FMA routines here). The
-// FMA products are bound by the shared-memory loads of their inner loop
-// (one scalar load per 4 FFMAs), then by streaming the weights through
-// shared memory again for every chunk, not by arithmetic; 3xTF32 cuts the
-// first but doubles the second. (`wgmma` wants 64-row tiles in a shared
-// layout of its own, for which the rows below leave no room.) The flow is
-// ~12% of the MACs but a long chain of small steps, each a few FMAs per
-// point followed by a reduction over points.
+// The FP32 build's arithmetic is plain FP32 FMAs (the TPU reference pins
+// full f32), at ~7x the first bound. A 3xTF32 `mma.sync` design of the
+// products kept FP32 accuracy but made the kernel 1-2% slower (`PERF.md`,
+// Findings; its routines are in `tools/csrc/mma_tf32_trial.cuh`, and
+// `tools/product_bench.py` times them beside the routines here). The FMA
+// products are bound by the shared-memory loads of their inner loop (one
+// scalar load per 4 FFMAs), then by streaming the weights through shared
+// memory again for every chunk, not by arithmetic; 3xTF32 cuts the first
+// but doubles the second. (`wgmma` wants 64-row tiles in a shared layout
+// of its own, for which the rows below leave no room.) The flow is ~12% of
+// the MACs but a long chain of small steps, each a few FMAs per point
+// followed by a reduction over points. The bf16 build's products run on
+// the bf16 tensor cores (below); what bounds them there is no longer the
+// arithmetic but moving their operands: the weights streamed from L2 per
+// chunk and slab, the FP32 activation rows read and packed per fragment,
+// and the weight grads' read-modify-write of the partial row per chunk.
 //
 // Design.
 // - A block takes one image g and a tile of `chunks` chunks of TP points
@@ -49,16 +53,18 @@
 //   input (as `_kernel_interleaved` does), in the rows the ICNN uses, which
 //   are free by then. Bench model at TP=64: (24 + 8*12 + 5*130) rows * 68
 //   * 4 B + 2 weight slabs of 16 x 145 floats = 228,000 B of the 227 KB
-//   (232,448 B) a block may use; one block per SM. The slab space holds
-//   one flow step's weights while the flow runs.
-// - The ICNN's products are register-tiled FMA loops of the kernel's own.
-//   Forward and backward-data (W x W times W x TP): 16-column slabs of the
-//   weight matrix are staged through shared memory (the next slab is
-//   fetched into registers while the current one is used); each thread
-//   owns 9 rows x 4 points and reads its 4 points as one float4. Weight
-//   grads (W x TP times TP x W, the sum over the chunk's points): each
-//   thread owns 5 x 17 outputs; the row strides make both operands' reads
-//   free of bank conflicts.
+//   (232,448 B) a block may use (the bf16 build's slabs are 144 rows of
+//   16 bf16 at a 48 B stride: 223,264 B); one block per SM. The slab space
+//   holds one flow step's weights while the flow runs.
+// - The FP32 build's ICNN products are register-tiled FMA loops of the
+//   kernel's own. Forward and backward-data (W x W times W x TP): 16-column
+//   slabs of the weight matrix are staged through shared memory (the next
+//   slab is fetched into registers while the current one is used); each
+//   thread owns 9 rows x 4 points and reads its 4 points as one float4.
+//   Weight grads (W x TP times TP x W, the sum over the chunk's points):
+//   each thread owns 5 x 17 outputs; the row strides make both operands'
+//   reads free of bank conflicts. The bf16 build's are `mma.sync` routines
+//   with the same staging and contracts (`mm_rows_bf16`, `wgrad_bf16`).
 // - Every other sum over points (biases, ActNorm, the flow's weights, the
 //   ICNN's skip and input weights, the loss) is a thread per output,
 //   summing the chunk's points in order.
@@ -85,16 +91,23 @@
 // nearest bf16 value (ties to even) and the products are summed in FP32;
 // biases, activations, exp/tanh/sigmoid, the plain sums over points (bias
 // and ActNorm grads, the loss) and the params stay FP32. A rounded value
-// is used only as a product operand: it is rounded where the product
-// loads it (`op`), or when a weight is staged into shared memory for
-// products alone, never in the rows other code reads. A product of two
-// bf16 values is exact in FP32, so these FP32 FMAs give the products that
-// bf16 tensor cores would; the build runs on the FMA routines of the FP32
-// build (bf16 `mma.sync` is a later step).
+// is used only as a product operand, never stored where other code reads
+// it. The ICNN's three W x W products (forward, backward data, weight
+// grads) run on the bf16 tensor cores, `mma.sync.m16n8k16` with FP32
+// sums (`mm_rows_bf16`, `wgrad_bf16`): the weights are rounded as they are
+// staged into shared memory, two to a 32-bit word, and the FP32 activation
+// rows (which the relu masks and the plain sums read) are rounded and
+// packed in pairs (`cvt.rn.bf16x2.f32`) as each fragment is loaded. A
+// product of two bf16 values is exact in FP32, so these are the products
+// the rounded-operand reference computes, summed in another order. The
+// flow's small products (K = 2 or M = 4, shapes a 16-deep MMA mostly
+// wastes) and the ICNN's skip, input and output layers stay FP32 FMAs on
+// operands rounded where they are loaded (`op`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 // Built with -DFLAGSHIP_PROFILE, the kernel adds the cycles of each phase of
@@ -163,21 +176,41 @@ struct MM {
   static constexpr int SLAB = KB * ASTR;            // floats per slab
 };
 
+// Tiling of the bf16 build's forward/backward-data products for TP points
+// (mm_rows_bf16): the points are cut into PT m16 tiles and a pass's rows
+// into n8 tiles; warp w takes point tile w % PT and row tiles w / PT +
+// WR*i (i < NPW). A weight slab holds one row of KB bf16 per output row, at
+// a stride of ASTR bf16 (48 B: the 8 rows an ldmatrix phase reads fall in
+// distinct banks); its pairs of values are staged PAIRS per thread.
+template <int TP>
+struct MMB {
+  static constexpr int PT = TP / 16;                 // point tiles (m16)
+  static constexpr int WR = NT / 32 / PT;            // warps per point tile
+  static constexpr int NPW = TP == 64 ? 9 : 5;       // row tiles per warp
+  static constexpr int RT = 8 * WR * NPW;            // rows per pass
+  static constexpr int ASTR = 24;                    // slab row stride, bf16
+  static constexpr int SLAB = RT * ASTR / 2;         // words per slab
+  static constexpr int PAIRS = (RT * KB / 2 + NT - 1) / NT;
+  static_assert(PT * WR * 32 == NT && RT >= 144, "tiling");
+};
+
 __host__ __device__ inline int smem_rows(int F, int H, int W, int L) {
   int icnn = (L + 3) * W, flow = 4 * H;
   return 24 + 8 * F + (icnn > flow ? icnn : flow);
 }
 
-// The region after the rows holds the ICNN's two weight slabs, or one
-// flow step's weights (w1, b1, w2, b2: 14H + 4 floats).
-__host__ __device__ inline int stage_floats(int tp, int H) {
-  const int slab = tp == 64 ? 2 * MM<64>::SLAB : 2 * MM<32>::SLAB;
+// The region after the rows holds the ICNN's two weight slabs (FP32, or
+// bf16 in the bf16 build), or one flow step's weights (w1, b1, w2, b2:
+// 14H + 4 floats).
+__host__ __device__ inline int stage_floats(int tp, bool bf16, int H) {
+  const int slab = bf16 ? 2 * (tp == 64 ? MMB<64>::SLAB : MMB<32>::SLAB)
+                        : 2 * (tp == 64 ? MM<64>::SLAB : MM<32>::SLAB);
   return slab > 14 * H + 4 ? slab : 14 * H + 4;
 }
 
-__host__ __device__ inline int smem_floats(int tp, int F, int H, int W,
-                                           int L) {
-  return smem_rows(F, H, W, L) * (tp + 4) + stage_floats(tp, H);
+__host__ __device__ inline int smem_floats(int tp, bool bf16, int F, int H,
+                                           int W, int L) {
+  return smem_rows(F, H, W, L) * (tp + 4) + stage_floats(tp, bf16, H);
 }
 
 // Add v into a partial-row element (write it on the block's first chunk).
@@ -189,9 +222,8 @@ __device__ __forceinline__ void put(float* dst, float v, bool first) {
 // out(m, p) = sum_c A[m*sr + c*sc] * B[c][p] for m < M, p < TP, handed to
 // epi(m, p, acc). A is global (weights), staged in KB-deep slabs through
 // `As` (2 slabs); B is shared rows of stride TP+4. Each thread owns RI rows
-// (mg + MG*i) x 4 consecutive points. In the bf16 build A is rounded as it
-// is staged and B as it is loaded.
-template <int TP, bool BF16, class Epi>
+// (mg + MG*i) x 4 consecutive points. FP32 build.
+template <int TP, class Epi>
 __device__ void mm_rows(int M, int K, const float* __restrict__ A, int sr,
                         int sc, const float* B, float* As, Epi epi) {
   using T = MM<TP>;
@@ -220,7 +252,7 @@ __device__ void mm_rows(int M, int K, const float* __restrict__ A, int sr,
         const int idx = t + l * NT;
         const int r = rowwise ? idx / KB : idx % T::RT;
         const int cc = rowwise ? idx % KB : idx / T::RT;
-        if (idx < KB * T::RT) dst[cc * T::ASTR + r] = op<BF16>(pre[l]);
+        if (idx < KB * T::RT) dst[cc * T::ASTR + r] = pre[l];
       }
     };
     float acc[T::RI][4];
@@ -237,9 +269,7 @@ __device__ void mm_rows(int M, int K, const float* __restrict__ A, int sr,
       const int kmax = min(KB, K - s * KB);
       const float* bp = B + s * KB * TPS + 4 * pg;
       for (int cc = 0; cc < kmax; ++cc) {
-        float4 b = *reinterpret_cast<const float4*>(bp + cc * TPS);
-        b = make_float4(op<BF16>(b.x), op<BF16>(b.y), op<BF16>(b.z),
-                        op<BF16>(b.w));
+        const float4 b = *reinterpret_cast<const float4*>(bp + cc * TPS);
         const float* ap = cur + cc * T::ASTR + mg;
 #pragma unroll
         for (int i = 0; i < T::RI; ++i) {
@@ -267,8 +297,8 @@ __device__ void mm_rows(int M, int K, const float* __restrict__ A, int sr,
 // G(m, k) (+)= sum_{p < TP} A[m][p] * B[k][p] for m < M, k < K, written to
 // out[m*ld + k]. A and B are shared rows of stride TP+4; each thread owns
 // rows mg + 32i (i < 5) x cols kg + 8j (j < 17); the sum over p runs in
-// order.
-template <int TP, bool BF16>
+// order. FP32 build.
+template <int TP>
 __device__ void wgrad_tiled(int M, int K, const float* A, const float* B,
                             float* out, int ld, bool first) {
   constexpr int TPS = TP + 4, RI = 5, RJ = 17, MS = 32, KS = 8;
@@ -291,10 +321,10 @@ __device__ void wgrad_tiled(int M, int K, const float* A, const float* B,
       for (int p = 0; p < TP; ++p) {
         float av[RI];
 #pragma unroll
-        for (int i = 0; i < RI; ++i) av[i] = op<BF16>(ar[i][p]);
+        for (int i = 0; i < RI; ++i) av[i] = ar[i][p];
 #pragma unroll
         for (int j = 0; j < RJ; ++j) {
-          const float bv = op<BF16>(br[j][p]);
+          const float bv = br[j][p];
 #pragma unroll
           for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(av[i], bv, acc[i][j]);
         }
@@ -319,6 +349,262 @@ __device__ void wgrad_tiled(int M, int K, const float* A, const float* B,
       }
     }
   }
+}
+
+// ---- the bf16 build's ICNN products, on the bf16 tensor cores ----
+
+// One 32-bit register of two bf16 values, each rounded to the nearest (ties
+// to even), lo in the low half where an MMA fragment wants the lower index
+// (one cvt.rn.bf16x2.f32).
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a * b: one m16n8k16 product of bf16 fragments, summed in FP32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix of four (x4) or two (x2) 8x8 bf16 matrices: lane l gives the
+// shared address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// mm_rows of the bf16 build (the same contract): out(m, p) = sum_c
+// A[m*sr + c*sc] * B[c][p] on the bf16 tensor cores, the points as the
+// product's m16 rows and the output rows as its n8 columns. A is staged in
+// KB-deep slabs through `As` (2 slabs of MMB<TP>::SLAB words), rounded to
+// bf16 as it is stashed, two values a 32-bit store, one row of the slab per
+// output row (the backward-data site's transposed A is staged transposed);
+// the next slab is fetched into registers while the current one is used.
+// Per slab (one k16 step) a warp loads its activation fragment once, 8
+// scalar loads from the FP32 rows B (stride TP+4: distinct banks) packed in
+// pairs, and its weight fragments with ldmatrix, two row tiles an x4.
+// Padding adds exact zeros: slab entries with m >= M or c >= K and rows
+// c >= K of B (they belong to other buffers) load as 0. Every row tile of
+// the pass is computed, live or not: a branch around an MMA cost ~10% of
+// the routine's cycles. No output with m >= M goes to epi.
+template <int TP, class Epi>
+__device__ void mm_rows_bf16(int M, int K, const float* __restrict__ A,
+                             int sr, int sc, const float* B, float* As,
+                             Epi epi) {
+  using T = MMB<TP>;
+  constexpr int TPS = TP + 4, SW = T::ASTR / 2, KP = KB / 2;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int g = lane >> 2, q = lane & 3;
+  const int p0 = 16 * (warp % T::PT), wr = warp / T::PT;
+  const int nslab = (K + KB - 1) / KB;
+  const bool rowwise = sc == 1;  // A rows contiguous: fetch along c
+  uint32_t* stage = reinterpret_cast<uint32_t*>(As);
+  // this lane's ldmatrix row for row tiles (i, i + 1): matrix lane / 8 is
+  // tile i + lane / 16, reduction half (lane / 8) % 2
+  const uint32_t lm =
+      static_cast<uint32_t>(__cvta_generic_to_shared(stage)) +
+      4 * ((8 * (wr + T::WR * (lane >> 4)) + (lane & 7)) * SW +
+           KP / 2 * ((lane >> 3) & 1));
+  const float* bp = B + p0 + g;
+  for (int m0 = 0; m0 < M; m0 += T::RT) {
+    float pre[2 * T::PAIRS];
+    auto fetch = [&](int s) {
+#pragma unroll
+      for (int l = 0; l < T::PAIRS; ++l) {
+        const int idx = t + l * NT;
+        const int r = rowwise ? idx / KP : idx % T::RT;
+        const int cp = rowwise ? idx % KP : idx / T::RT;
+        const int m = m0 + r, c = s * KB + 2 * cp;
+        const bool in = idx < KP * T::RT && m < M;
+        const float* a = A + (size_t)m * sr + (size_t)c * sc;
+        pre[2 * l] = in && c < K ? __ldcg(a) : 0.f;
+        pre[2 * l + 1] = in && c + 1 < K ? __ldcg(a + sc) : 0.f;
+      }
+    };
+    auto stash = [&](int s) {
+      uint32_t* dst = stage + (s & 1) * T::SLAB;
+#pragma unroll
+      for (int l = 0; l < T::PAIRS; ++l) {
+        const int idx = t + l * NT;
+        const int r = rowwise ? idx / KP : idx % T::RT;
+        const int cp = rowwise ? idx % KP : idx / T::RT;
+        if (idx < KP * T::RT)
+          dst[r * SW + cp] = bf16x2(pre[2 * l], pre[2 * l + 1]);
+      }
+    };
+    float acc[T::NPW][4];
+#pragma unroll
+    for (int i = 0; i < T::NPW; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    fetch(0);
+    stash(0);
+    __syncthreads();
+    for (int s = 0; s < nslab; ++s) {
+      if (s + 1 < nslab) fetch(s + 1);
+      // points p0 + g (+ 8) x reductions c, c + 1 (+ 8); a row at or past
+      // K is read at K - 1 and replaced by 0 (a select, no branch)
+      const int c = s * KB + 2 * q;
+      auto row = [&](int cc, int dp) {
+        const float v = bp[min(cc, K - 1) * TPS + dp];
+        return cc < K ? v : 0.f;
+      };
+      const uint32_t a[4] = {bf16x2(row(c, 0), row(c + 1, 0)),
+                             bf16x2(row(c, 8), row(c + 1, 8)),
+                             bf16x2(row(c + 8, 0), row(c + 9, 0)),
+                             bf16x2(row(c + 8, 8), row(c + 9, 8))};
+      const uint32_t base = lm + 4 * (s & 1) * T::SLAB;
+#pragma unroll
+      for (int i = 0; i < T::NPW; i += 2) {
+        uint32_t b[4];
+        const uint32_t addr = base + 4 * 8 * T::WR * i * SW;
+        if (i + 1 < T::NPW) {
+          ldsm_x4(addr, b);
+        } else {
+          ldsm_x2(addr, b);
+        }
+        mma_bf16(acc[i], a, b[0], b[1]);
+        if (i + 1 < T::NPW) mma_bf16(acc[i + 1], a, b[2], b[3]);
+      }
+      if (s + 1 < nslab) stash(s + 1);
+      __syncthreads();
+    }
+    // accumulator e of row tile i: point p0 + g + 8*(e/2), row 2q + e%2
+#pragma unroll
+    for (int i = 0; i < T::NPW; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + 8 * (wr + T::WR * i) + 2 * q + (e & 1);
+        if (m < M) epi(m, p0 + g + 8 * (e >> 1), acc[i][e]);
+      }
+    }
+  }
+}
+
+// Row `row` of the FP32 shared rows S (stride TP+4), points p .. p+3, or
+// zeros for a row at or past R (the padding of a tile): row R - 1 is read
+// and replaced by a select, not a branch.
+template <int TP>
+__device__ __forceinline__ float4 row4(const float* S, int row, int R,
+                                       int p) {
+  const float4 v =
+      *reinterpret_cast<const float4*>(S + min(row, R - 1) * (TP + 4) + p);
+  const bool in = row < R;
+  return make_float4(in ? v.x : 0.f, in ? v.y : 0.f, in ? v.z : 0.f,
+                     in ? v.w : 0.f);
+}
+
+// wgrad_tiled of the bf16 build (the same contract): out[m*ld + k] (+)=
+// sum_{p < TP} A[m][p] * B[k][p] on the bf16 tensor cores, the points as
+// the product's depth (TP/16 k16 steps). The output's m16 x n8 tiles are
+// cut into blocks of MB x NB tiles; warp w takes blocks w, w + 8, ... A
+// block computes all its tiles, also those past M or K (no branch around an
+// MMA), and stores only the live ones. Per step a block loads the A
+// fragment of each of its row tiles and the B fragment of each of its
+// column tiles once, as float4s from the FP32 rows (stride TP+4), rounded
+// and packed in pairs. A lane's depth slots 2q, 2q+1, 2q+8, 2q+9 of step j
+// take the points 32*(j/2) + 8q + 4*(j%2) + 0..3, the same for both
+// operands, so every point is summed once; with that order the float4
+// reads fall in distinct banks. Rows m >= M of A and k >= K of B load as
+// 0, and are not stored. Each output element is owned by one lane, its sum
+// in a fixed order, then added to the partial row once per chunk through
+// L2 (ld/st.cg). For that add a block's rows go through `scratch` (a
+// warp's 8 x WS floats at a time; shared, and free until this returns: it
+// ends on a barrier): in the MMA's layout a row of a tile is 4 lanes'
+// pairs, so a warp-wide access would touch each 32 B sector twice;
+// transposed, each load and store is one row of NB*8 consecutive floats.
+template <int TP>
+__device__ void wgrad_bf16(int M, int K, const float* A, const float* B,
+                           float* out, int ld, bool first, float* scratch) {
+  constexpr int MB = 3, NB = 4, WS = 8 * NB + 8;  // WS = 8 mod 32: float2
+  static_assert(NT / 32 * 8 * WS <= 2 * MMB<TP>::SLAB, "scratch");
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, q = lane & 3;
+  float* sw = scratch + warp * 8 * WS;
+  const int mtn = (M + 15) / 16, ntn = (K + 7) / 8;
+  const int mgs = (mtn + MB - 1) / MB, ngs = (ntn + NB - 1) / NB;
+  for (int blk = warp; blk < mgs * ngs; blk += NT / 32) {
+    const int mt0 = MB * (blk / ngs), nt0 = NB * (blk % ngs);
+    const int mlen = min(MB, mtn - mt0), nlen = min(NB, ntn - nt0);
+    float acc[MB][NB][4];
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    // unrolled further, the steps' fragments spill in the kernel
+#pragma unroll 2
+    for (int st = 0; st < TP / 16; ++st) {
+      const int p = 32 * (st / 2) + 8 * q + 4 * (st % 2);
+      uint32_t a[MB][4], b[NB][2];
+#pragma unroll
+      for (int i = 0; i < MB; ++i) {
+        const int m = 16 * (mt0 + i) + g;
+        const float4 lo = row4<TP>(A, m, M, p);
+        const float4 hi = row4<TP>(A, m + 8, M, p);
+        a[i][0] = bf16x2(lo.x, lo.y);
+        a[i][1] = bf16x2(hi.x, hi.y);
+        a[i][2] = bf16x2(lo.z, lo.w);
+        a[i][3] = bf16x2(hi.z, hi.w);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float4 v = row4<TP>(B, 8 * (nt0 + j) + g, K, p);
+        b[j][0] = bf16x2(v.x, v.y);
+        b[j][1] = bf16x2(v.z, v.w);
+      }
+#pragma unroll
+      for (int i = 0; i < MB; ++i)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+    // accumulator e of tile (i, j): row g + 8*(e/2), column 2q + e%2. Per
+    // row tile, lane l takes column 8*nt0 + l of its 16 rows: the old
+    // values are loaded first, then the sums come through the scratch (8
+    // rows at a time), then each row is added and stored.
+    const int k = 8 * nt0 + lane;
+    const bool kin = lane < 8 * nlen && k < K;
+#pragma unroll
+    for (int i = 0; i < MB; ++i) {
+      if (i >= mlen) continue;
+      const int m0 = 16 * (mt0 + i);
+      float old[16], v[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        old[r] = (!first && kin && m0 + r < M) ? __ldcg(out + (m0 + r) * ld + k)
+                                               : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          *reinterpret_cast<float2*>(sw + g * WS + 8 * j + 2 * q) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < 8; ++r) v[8 * h + r] = sw[r * WS + lane];
+        __syncwarp();
+      }
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        if (kin && m0 + r < M) __stcg(out + (m0 + r) * ld + k, old[r] + v[r]);
+    }
+  }
+  __syncthreads();  // every warp is done with its scratch
 }
 
 // For rows r < R of S (shared, stride TP+4) and NW weight rows wv[j]
@@ -525,13 +811,16 @@ __global__ void __launch_bounds__(NT, 1)
       const float* ws = wsk + l * W * 2;
       const float* bl = bln + l * W;
       float* hout = HB + (l + 1) * W * TPS;
-      mm_rows<TP, BF16>(W, W, wln + (size_t)l * W * W, W, 1, HB + l * W * TPS,
-                        AS, [&](int m, int p, float acc) {
-                    acc = fmaf(op<BF16>(ws[2 * m]), op<BF16>(XD[p]), acc);
-                    acc = fmaf(op<BF16>(ws[2 * m + 1]), op<BF16>(XD[TPS + p]),
-                               acc);
-                    hout[m * TPS + p] = fmaxf(acc + bl[m], 0.f);
-                  });
+      auto epi = [&](int m, int p, float acc) {
+        acc = fmaf(op<BF16>(ws[2 * m]), op<BF16>(XD[p]), acc);
+        acc = fmaf(op<BF16>(ws[2 * m + 1]), op<BF16>(XD[TPS + p]), acc);
+        hout[m * TPS + p] = fmaxf(acc + bl[m], 0.f);
+      };
+      const float* wl = wln + (size_t)l * W * W;
+      if constexpr (BF16)
+        mm_rows_bf16<TP>(W, W, wl, W, 1, HB + l * W * TPS, AS, epi);
+      else
+        mm_rows<TP>(W, W, wl, W, 1, HB + l * W * TPS, AS, epi);
       __syncthreads();
       PHASE(3);
     }
@@ -594,8 +883,11 @@ __global__ void __launch_bounds__(NT, 1)
       const float* wl = wln + (size_t)l * W * W;
       const float* ws = wsk + l * W * 2;
       const float* hin = HB + l * W * TPS;
-      wgrad_tiled<TP, BF16>(W, W, D0, hin,
-                            part + off.f[WLN] + (size_t)l * W * W, W, first);
+      float* gwl = part + off.f[WLN] + (size_t)l * W * W;
+      if constexpr (BF16)
+        wgrad_bf16<TP>(W, W, D0, hin, gwl, W, first, AS);
+      else
+        wgrad_tiled<TP>(W, W, D0, hin, gwl, W, first);
       PHASE(6);
       float* o_skip[3] = {part + off.f[WSK] + l * W * 2,
                           part + off.f[WSK] + l * W * 2 + 1,
@@ -611,9 +903,13 @@ __global__ void __launch_bounds__(NT, 1)
       }
       PHASE(7);
       float* dnext = D1;
-      mm_rows<TP, BF16>(W, W, wl, 1, W, D0, AS, [&](int k, int p, float acc) {
+      auto mask = [&](int k, int p, float acc) {
         dnext[k * TPS + p] = hin[k * TPS + p] > 0.f ? acc : 0.f;
-      });
+      };
+      if constexpr (BF16)
+        mm_rows_bf16<TP>(W, W, wl, 1, W, D0, AS, mask);
+      else
+        mm_rows<TP>(W, W, wl, 1, W, D0, AS, mask);
       __syncthreads();
       PHASE(8);
       float* tmp = D0;
@@ -811,9 +1107,10 @@ int flagship_phase_cycles(unsigned long long* host, int reset) {
 }
 #endif
 
-// Shared memory one block needs, in bytes.
-int flagship_smem_bytes(int tp, int F, int H, int W, int L) {
-  return smem_floats(tp, F, H, W, L) * (int)sizeof(float);
+// Shared memory one block needs, in bytes, at a tile of tp points in the
+// FP32 (bf16 = 0) or the bf16 build.
+int flagship_smem_bytes(int tp, int bf16, int F, int H, int W, int L) {
+  return smem_floats(tp, bf16 != 0, F, H, W, L) * (int)sizeof(float);
 }
 
 // The device's opt-in shared memory per block and its SM count.
@@ -850,7 +1147,8 @@ int flagship_loss_grad(const float* x, const float* tgt, const float* wpt,
                        int smem, int chunks, int n_tiles, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (N < 1 || G < 1 || L < 1 || smem != flagship_smem_bytes(tp, F, H, W, L))
+  if (N < 1 || G < 1 || L < 1 ||
+      smem != flagship_smem_bytes(tp, bf16, F, H, W, L))
     return (int)cudaErrorInvalidValue;
   Offsets off;
   for (int k = 0; k < N_FIELDS; ++k) off.f[k] = offsets[k];

@@ -383,7 +383,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.flagship_loss_grad.argtypes = [vp] * 8 + [i] * 15 + [vp]
     lib.flagship_loss_grad.restype = i
-    lib.flagship_smem_bytes.argtypes = [i] * 5
+    lib.flagship_smem_bytes.argtypes = [i] * 6
     lib.flagship_smem_bytes.restype = i
     lib.flagship_device_limits.argtypes = [i, vp, vp]
     lib.flagship_device_limits.restype = i
@@ -421,7 +421,7 @@ def launch_shape(spec: FlagshipSpec, n: int, group: int,
                                      ctypes.byref(sms)), "device query")
     dims = (spec.n_flows, spec.hidden, spec.icnn_w, spec.n_layers)
     for tp in (64, 32):
-        smem = lib.flagship_smem_bytes(tp, *dims)
+        smem = lib.flagship_smem_bytes(tp, int(use_bf16), *dims)
         if smem <= max_smem.value:
             break
     else:

@@ -80,18 +80,11 @@ def _nrel(a: torch.Tensor, b: torch.Tensor) -> float:
                  / torch.linalg.vector_norm(b))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("width,layers,tp", [(130, 2, 64), (130, 3, 32)])
-def test_cuda_bf16_kernel_matches_plain(cuda_device, width, layers, tp):
-    """The bf16 build against the plain bf16 version (both ICNN depths, so
-    both tile instantiations): the loss and every packed leaf within a
-    tenth of the plain version's bf16-vs-FP32 gap, by (norm-)relative
-    error; two launches bitwise equal."""
-    spec, stacked, flat, x, tgt, wts = _flagship_inputs(
-        cuda_device, width, layers, width + layers + 2)
-    assert TP.launch_shape(spec, x.shape[0], 2, None, x.device,
-                           use_bf16=True).tp == tp
-    f = TP.FlagshipLossGrad(spec, True, 2, None, use_bf16=True)
+def _assert_bf16_within_gap(spec, stacked, flat, x, tgt, wts, g):
+    """The bf16 build against the plain bf16 version: two launches bitwise
+    equal; the loss and every packed leaf within a tenth of the plain
+    version's bf16-vs-FP32 gap, by (norm-)relative error."""
+    f = TP.FlagshipLossGrad(spec, True, g, None, use_bf16=True)
     loss, grads = f.flat(flat, x, tgt, wts)
     loss2, grads2 = f.flat(flat, x, tgt, wts)
     assert torch.equal(loss, loss2) and torch.equal(grads, grads2)
@@ -105,6 +98,32 @@ def test_cuda_bf16_kernel_matches_plain(cuda_device, width, layers, tp):
         gap = _nrel(ref[name], f32[name])
         assert gap > 0.0, name
         assert _nrel(got[name], ref[name]) <= 0.1 * gap, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,layers,tp", [(130, 2, 64), (130, 3, 32),
+                                             (50, 2, 64), (150, 2, 32),
+                                             (150, 1, 64)])
+def test_cuda_bf16_kernel_matches_plain(cuda_device, width, layers, tp):
+    """The bf16 build against the plain bf16 version (ragged N, G = 2) at
+    both tile instantiations and the tensor-core products' edges: width 50
+    and 150 are no multiple of 16 (padded rows, columns and depth), and
+    width 150 at 64-point tiles takes a second pass of rows (144 a pass;
+    160 at 32-point tiles)."""
+    spec, stacked, flat, x, tgt, wts = _flagship_inputs(
+        cuda_device, width, layers, width + layers + 2)
+    assert TP.launch_shape(spec, x.shape[0], 2, None, x.device,
+                           use_bf16=True).tp == tp
+    _assert_bf16_within_gap(spec, stacked, flat, x, tgt, wts, 2)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_per_image_points_match_plain(cuda_device):
+    """The bf16 build with a point set per image (G = 8, the batched bf16
+    fit's launch) against the plain bf16 version, by the gap rule."""
+    spec, stacked, flat, x, tgt, wts = _flagship_inputs(
+        cuda_device, 130, 2, 136, g=8, per_image=True)
+    _assert_bf16_within_gap(spec, stacked, flat, x, tgt, wts, 8)
 
 
 @pytest.mark.gpu

@@ -7,26 +7,31 @@
 //   operands of one TP-point chunk held in shared memory (the weights in
 //   global memory, as in the kernel), and block b writes its clock64 cycles
 //   to cyc[b]. Block 0's output rows (or its partial row, for the weight
-//   grads) come back for checking.
+//   grads) come back for checking. Routines: the FP32 build's FMA
+//   products, the 3xTF32 trial's and the bf16 build's tensor-core ones
+//   (`mm_rows_bf16`, `wgrad_bf16`), each under the kernel's launch bounds,
+//   at TP = 64 and 32.
 // - `rate<MODE>`: one block per SM issues a long run of one instruction
 //   kind with enough independent work to keep the pipe full.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "flagship.cu"
 #include "mma_tf32_trial.cuh"
 
 namespace bench {
 
-enum Routine { FWD, BWD, WGRAD, TC_FWD, TC_BWD, TC_WGRAD };
+enum Routine { FWD, BWD, WGRAD, TC_FWD, TC_BWD, TC_WGRAD, BF_FWD, BF_BWD,
+               BF_WGRAD };
 
 template <int TP>
 constexpr int staging_floats() {
-  return 2 * MM<TP>::SLAB > tf32x3::TcTile<TP>::STAGE
-             ? 2 * MM<TP>::SLAB
-             : tf32x3::TcTile<TP>::STAGE;
+  constexpr int fma = 2 * MM<TP>::SLAB, tc = tf32x3::TcTile<TP>::STAGE;
+  constexpr int bf = 2 * MMB<TP>::SLAB;
+  return fma > tc ? (fma > bf ? fma : bf) : (tc > bf ? tc : bf);
 }
 
 // Shared memory: B (K rows), B2 (M rows), O (M rows), all of stride TP+4,
@@ -54,13 +59,16 @@ __global__ void __launch_bounds__(NT, 1)
   const long long t0 = clock64();
   for (int r = 0; r < reps; ++r) {
     using namespace tf32x3;
-    if constexpr (R == FWD) mm_rows<TP, false>(M, K, A, K, 1, B, As, store);
-    if constexpr (R == BWD) mm_rows<TP, false>(M, K, A, 1, M, B, As, store);
-    if constexpr (R == WGRAD)
-      wgrad_tiled<TP, false>(M, K, B2, B, out, K, r == 0);
+    if constexpr (R == FWD) mm_rows<TP>(M, K, A, K, 1, B, As, store);
+    if constexpr (R == BWD) mm_rows<TP>(M, K, A, 1, M, B, As, store);
+    if constexpr (R == WGRAD) wgrad_tiled<TP>(M, K, B2, B, out, K, r == 0);
     if constexpr (R == TC_FWD) mm_rows_tc<TP>(M, K, A, K, 1, B, As, store);
     if constexpr (R == TC_BWD) mm_rows_tc<TP>(M, K, A, 1, M, B, As, store);
     if constexpr (R == TC_WGRAD) wgrad_tc<TP>(M, K, B2, B, out, K, r == 0);
+    if constexpr (R == BF_FWD) mm_rows_bf16<TP>(M, K, A, K, 1, B, As, store);
+    if constexpr (R == BF_BWD) mm_rows_bf16<TP>(M, K, A, 1, M, B, As, store);
+    if constexpr (R == BF_WGRAD)
+      wgrad_bf16<TP>(M, K, B2, B, out, K, r == 0, As);
     __syncthreads();
   }
   const long long t1 = clock64();
@@ -184,33 +192,36 @@ int launch_rate(float* out, long long* cyc, int blocks, int threads,
 
 extern "C" {
 
-// Routine `which` (bench::Routine) at TP = 64; `part` holds `blocks`
-// partial rows of M*K floats, `O` one block's M rows of stride 68.
+// Routine `which` (bench::Routine) at a tile of tp (64 or 32) points;
+// `part` holds `blocks` partial rows of M*K floats, `O` one block's M rows
+// of stride tp+4.
 int product_bench_routine(int which, const float* A, const float* B,
                           const float* B2, float* O, float* part,
-                          long long* cyc, int M, int K, int reps,
-                          int blocks) {
+                          long long* cyc, int M, int K, int reps, int blocks,
+                          int tp) {
   using namespace bench;
-  switch (which) {
-    case FWD:
-      return launch_routine<64, FWD>(A, B, B2, O, part, cyc, M, K, reps,
-                                     blocks);
-    case BWD:
-      return launch_routine<64, BWD>(A, B, B2, O, part, cyc, M, K, reps,
-                                     blocks);
-    case WGRAD:
-      return launch_routine<64, WGRAD>(A, B, B2, O, part, cyc, M, K, reps,
-                                       blocks);
-    case TC_FWD:
-      return launch_routine<64, TC_FWD>(A, B, B2, O, part, cyc, M, K, reps,
-                                        blocks);
-    case TC_BWD:
-      return launch_routine<64, TC_BWD>(A, B, B2, O, part, cyc, M, K, reps,
-                                        blocks);
-    case TC_WGRAD:
-      return launch_routine<64, TC_WGRAD>(A, B, B2, O, part, cyc, M, K,
-                                          reps, blocks);
-  }
+  auto run = [&](auto tile, auto r) {
+    return launch_routine<decltype(tile)::value, decltype(r)::value>(
+        A, B, B2, O, part, cyc, M, K, reps, blocks);
+  };
+  auto at = [&](auto tile) {
+    switch (which) {
+      case FWD: return run(tile, std::integral_constant<int, FWD>{});
+      case BWD: return run(tile, std::integral_constant<int, BWD>{});
+      case WGRAD: return run(tile, std::integral_constant<int, WGRAD>{});
+      case TC_FWD: return run(tile, std::integral_constant<int, TC_FWD>{});
+      case TC_BWD: return run(tile, std::integral_constant<int, TC_BWD>{});
+      case TC_WGRAD:
+        return run(tile, std::integral_constant<int, TC_WGRAD>{});
+      case BF_FWD: return run(tile, std::integral_constant<int, BF_FWD>{});
+      case BF_BWD: return run(tile, std::integral_constant<int, BF_BWD>{});
+      case BF_WGRAD:
+        return run(tile, std::integral_constant<int, BF_WGRAD>{});
+    }
+    return -1;
+  };
+  if (tp == 64) return at(std::integral_constant<int, 64>{});
+  if (tp == 32) return at(std::integral_constant<int, 32>{});
   return -1;
 }
 

@@ -1,7 +1,7 @@
 """Where the flagship kernel's time goes, phase by phase, on the card.
 
     python3 -m tools.flagship_phases [--h 480] [--w 640]
-        [--model bench|default] [--root DIR]
+        [--model bench|default] [--bf16] [--root DIR]
 
 Builds ``awesome_tpu_torch/ops/csrc/flagship.cu`` with
 ``-DFLAGSHIP_PROFILE`` (per-phase ``clock64`` counters of block (0, 0),
@@ -11,6 +11,7 @@ at the given image size through that build, then times the plain build
 line: the card, the launch shape, the plain build's ms per call, and each
 phase's cycles and share. The barriers the counters add make the profiled
 kernel a little slower than the plain build; the shares are what to read.
+``--bf16`` runs the bf16 build (``use_bf16``) instead of the FP32 one.
 
 ``--root`` takes the package from another checkout (e.g. an earlier
 commit unpacked with ``git archive``), so that two versions of the kernel
@@ -46,6 +47,8 @@ def main() -> None:
     ap.add_argument("--h", type=int, default=480)
     ap.add_argument("--w", type=int, default=640)
     ap.add_argument("--model", choices=("bench", "default"), default="bench")
+    ap.add_argument("--bf16", action="store_true",
+                    help="profile the bf16 build (use_bf16)")
     ap.add_argument("--root", default=None,
                     help="checkout whose awesome_tpu_torch to build and run")
     args = ap.parse_args()
@@ -80,25 +83,28 @@ def main() -> None:
     lib.flagship_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.flagship_phase_cycles.restype = ctypes.c_int
     F.LIBRARY.use(lib)
-    shape = F.launch_shape(spec, n, 1, None, x.device)
-    F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True, shape)
+    shape = F.launch_shape(spec, n, 1, None, x.device, use_bf16=args.bf16)
+
+    def run():
+        F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True, shape,
+                                  use_bf16=args.bf16)
+
+    run()
     torch.cuda.synchronize()
     counts = (ctypes.c_ulonglong * 16)()
     check(lib.flagship_phase_cycles(None, 1), "reset counters")
-    F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True, shape)
+    run()
     torch.cuda.synchronize()
     check(lib.flagship_phase_cycles(ctypes.addressof(counts), 0),
              "read counters")
     cycles = np.array(counts[:len(PHASES)], dtype=np.float64)
     total = float(cycles.sum())
     F.LIBRARY.use(F.LIBRARY.load(F.LIBRARY.build()))
-    ms = cuda_time_ms(
-        lambda: F.flagship_loss_grad_cuda(spec, flat, x, tgt, wpt, True,
-                                          shape), REPS)
+    ms = cuda_time_ms(run, REPS)
     print(json.dumps({
         "card": nvidia_smi_line(),
         "root": str(Path(F.__file__).resolve().parents[2]),
-        "model": args.model, "shape": [args.h, args.w],
+        "model": args.model, "bf16": args.bf16, "shape": [args.h, args.w],
         "launch": dataclasses.asdict(shape), "ms": ms,
         "block0_cycles": total,
         "phases": [{"phase": name, "cycles": float(c),
