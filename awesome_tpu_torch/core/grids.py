@@ -5,11 +5,38 @@ both."""
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from awesome_tpu_torch.device import DeviceLike, resolve_device
+
+
+def _unit_linspace(n: int, dtype, device) -> torch.Tensor:
+    step = torch.tensor(1.0 / max(n - 1, 1), dtype=dtype)
+    out = torch.arange(n, dtype=dtype) * step
+    if n > 1:
+        out[-1] = 1.0
+    return out.to(device)
+
+
+def positional_grid(w: int, h: int, t: Optional[float] = None,
+                    t_max: Optional[float] = None, dtype=torch.float32,
+                    device: DeviceLike = None) -> torch.Tensor:
+    """Positional matrices: ``(2, h, w)`` with channels (x, y), each a
+    ``linspace(0, 1)``, or ``(3, h, w)`` with a constant t / t_max channel
+    appended. The linspace is computed as JAX's compiled one is, ``i *
+    (1 / (n - 1))`` with the last point 1 (torch's own meets from both
+    ends; the two differ in the last bit)."""
+    dev = resolve_device(device)
+    y, x = _unit_linspace(h, dtype, dev), _unit_linspace(w, dtype, dev)
+    yy, xx = torch.meshgrid(y, x, indexing="ij")
+    if t is None:
+        return torch.stack((xx, yy), dim=0)
+    if t_max is None:
+        raise ValueError("t_max must be set if t is set")
+    tt = torch.full_like(xx, t / t_max)
+    return torch.stack((xx, yy, tt), dim=0)
 
 
 def coordinate_grid(grid_shape: Sequence[int], dtype=torch.float32,

@@ -1,1 +1,2 @@
-"""The prior-fit engine: optimizers, the per-image fit, the fused fit."""
+"""The prior-fit engine (optimizers, the per-image, fused and
+spatio-temporal fits), joint training, checkpoints and the tracker."""

@@ -24,6 +24,7 @@ from awesome_tpu_torch.core import tree as T
 from awesome_tpu_torch.fit import optim
 from awesome_tpu_torch.measures.losses import unaries_weight
 from awesome_tpu_torch.measures.metrics import iou
+from awesome_tpu_torch.nn.module import make_generator
 
 Params = Any
 
@@ -303,9 +304,8 @@ def _gate_iou(out, target_points, cfg: FitConfig,
 def _init_fresh(model, retry_keys: Sequence) -> Params:
     """Fresh stacked params, one per retry key (an int seed or a
     ``torch.Generator``)."""
-    gens = [k if isinstance(k, torch.Generator)
-            else torch.Generator().manual_seed(int(k)) for k in retry_keys]
-    return T.stack_trees([model.init(g) for g in gens])
+    return T.stack_trees([model.init(make_generator(k))
+                          for k in retry_keys])
 
 
 def make_gate_retry_fn(model, cfg: FitConfig, per_image_points: bool = False,
@@ -526,18 +526,26 @@ def apply_prefits(model, params: Params, points: torch.Tensor,
     """The warm-start prefits as one entry point: the flow towards the
     identity on the grid, then the ICNN on a circle approximation or the
     unaries. Models without ``flow_net``/``convex_net`` pass through
-    unchanged. The model zoo (the JAX package's cache of the flow prefit
-    under ``zoo_key``) is not ported: a ``zoo`` raises."""
-    del zoo_key
-    if zoo is not None:
-        raise NotImplementedError("the model zoo is not ported yet")
+    unchanged. With a ``zoo`` (``nn.zoo.Zoo``) the flow prefit is loaded
+    from it when cached under ``zoo_key`` (default: the points' shape),
+    else fitted and saved there."""
     if not (hasattr(model, "flow_net") and hasattr(model, "convex_net")):
         return params
     if prefit_flow_identity:
-        params, _ = learn_flow_identity(
-            model, params, points, lr=flow_identity_lr,
-            weight_decay=flow_identity_weight_decay,
-            max_iter=flow_identity_steps)
+        name = zoo_key or f"flow_identity_{tuple(points.shape)}_0"
+        cached = None
+        if zoo is not None:
+            cached, _ = zoo.load_model_state(name, model.flow_net,
+                                             params["flow"])
+            if cached is not None:
+                params = dict(params, flow=cached)
+        if cached is None:
+            params, _ = learn_flow_identity(
+                model, params, points, lr=flow_identity_lr,
+                weight_decay=flow_identity_weight_decay,
+                max_iter=flow_identity_steps)
+            if zoo is not None:
+                zoo.save_model_state(name, model.flow_net, params["flow"])
     if prefit_convex and convex_target is not None:
         params, _ = learn_convex_net(
             model, params, points, convex_target, mode=convex_mode,

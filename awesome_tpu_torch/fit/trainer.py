@@ -1,6 +1,6 @@
 """Joint training: the segmentation net and the per-image priors in one
-step; counterpart of the joint step and epoch of
-``awesome_tpu/fit/trainer.py``.
+step; counterpart of ``awesome_tpu/fit/trainer.py`` (the joint step and
+epoch, and the multi-object step and epoch).
 
 The priors of ALL images live in one stacked param tree (a leading image
 axis), with their optimizer moments stacked beside them. A step gathers
@@ -63,19 +63,41 @@ def _optim(name: str):
             "adamax": (optim.adamax_init, optim.adamax_update)}[name]
 
 
-def joint_train_init(wrapper, generator: Optional[torch.Generator],
-                     num_images: int, cfg: JointTrainConfig,
-                     seg_init=None, prior_init=None) -> JointTrainState:
-    """The train state: seg params (and state) and stacked per-image prior
-    params, fresh ones or ``prior_init`` (e.g. the pretrained priors)."""
-    gen = make_generator(generator)
+def _seg_init(wrapper, gen: torch.Generator, cfg: JointTrainConfig,
+              seg_init=None):
+    """(seg params, seg state or None, seg optimizer state)."""
     if seg_init is not None:
         seg_params, seg_state = seg_init
     elif wrapper.seg_stateful:
         seg_params, seg_state = wrapper.segmentation_module.init(gen)
     else:
         seg_params, seg_state = wrapper.segmentation_module.init(gen), None
-    seg_opt = _optim(cfg.optimizer)[0](seg_params)
+    return seg_params, seg_state, _optim(cfg.optimizer)[0](seg_params)
+
+
+def _seg_forward(wrapper, cfg: JointTrainConfig, seg_params, seg_state,
+                 batch):
+    """The processed segmentation output (B, H, W, C) and the new seg
+    state."""
+    image, feats = batch["image"], batch["features"]
+    if wrapper.seg_stateful:
+        seg_logits, new_seg_state = wrapper.segmentation_module.apply(
+            seg_params, seg_state, image, feats,
+            train=cfg.train_segmentation)
+    else:
+        seg_logits = wrapper.segmentation_module.apply(seg_params, image,
+                                                       feats)
+        new_seg_state = seg_state
+    return wrapper.process_segmentation_output(seg_logits), new_seg_state
+
+
+def joint_train_init(wrapper, generator: Optional[torch.Generator],
+                     num_images: int, cfg: JointTrainConfig,
+                     seg_init=None, prior_init=None) -> JointTrainState:
+    """The train state: seg params (and state) and stacked per-image prior
+    params, fresh ones or ``prior_init`` (e.g. the pretrained priors)."""
+    gen = make_generator(generator)
+    seg_params, seg_state, seg_opt = _seg_init(wrapper, gen, cfg, seg_init)
     if wrapper.prior_module is None:
         prior_params, prior_opt = {}, {}
     else:
@@ -131,16 +153,9 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
     loss_fn = loss_fn or _default_loss_fn(cfg, has_prior)
 
     def forward(seg_params, prior_batch, seg_state, batch):
-        image, feats, grid = batch["image"], batch["features"], batch["grid"]
-        if wrapper.seg_stateful:
-            seg_logits, new_seg_state = wrapper.segmentation_module.apply(
-                seg_params, seg_state, image, feats,
-                train=cfg.train_segmentation)
-        else:
-            seg_logits = wrapper.segmentation_module.apply(seg_params, image,
-                                                           feats)
-            new_seg_state = seg_state
-        seg = wrapper.process_segmentation_output(seg_logits)
+        grid = batch["grid"]
+        seg, new_seg_state = _seg_forward(wrapper, cfg, seg_params,
+                                          seg_state, batch)
         if not has_prior:
             return seg, new_seg_state
         prior_pts = torch.func.vmap(
@@ -157,12 +172,8 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
         prior_batch = T.tree_map(lambda x: x[idx], state.prior_params)
         prior_opt_batch = T.tree_map(lambda x: x[idx] if x.ndim > 0 else x,
                                      state.prior_opt)
-        seg_leaves = T.tree_map(lambda x: x.detach().requires_grad_(True),
-                                state.seg_params)
-        prior_leaves = T.tree_map(lambda x: x.detach().requires_grad_(True),
-                                  prior_batch)
-        with torch.enable_grad():
-            out, new_seg_state = forward(seg_leaves, prior_leaves,
+        def compute_loss(seg_params, prior_params):
+            out, new_seg_state = forward(seg_params, prior_params,
                                          state.seg_state, batch)
             if weight is not None:
                 res = loss_fn(out, batch["target"], weight)
@@ -170,36 +181,21 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
                 res = loss_fn(out, batch["target"])
             if not isinstance(res, dict):
                 res = {"loss": res}
-            loss = res["loss"]
-            wrt = T.tree_leaves(seg_leaves) + T.tree_leaves(prior_leaves)
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-        grads = [torch.zeros_like(w) if g is None else g
-                 for w, g in zip(wrt, grads)]
-        n_seg = len(T.tree_leaves(seg_leaves))
-        seg_g = _unflatten(state.seg_params, grads[:n_seg])
-        prior_g = _unflatten(prior_batch, grads[n_seg:])
-        metrics = {k: v.detach() for k, v in res.items()}
-        ok = torch.isfinite(loss.detach()) if cfg.nan_guard else \
-            torch.ones((), dtype=torch.bool, device=loss.device)
+            return res["loss"], (res, new_seg_state)
 
-        if cfg.train_segmentation:
-            new_seg, new_seg_opt = seg_upd(state.seg_params, seg_g,
-                                           state.seg_opt, cfg.lr * lr_scale)
-            new_seg = T.tree_where(ok, new_seg, state.seg_params)
-            new_seg_opt = T.tree_where(ok, new_seg_opt, state.seg_opt)
-        else:
-            new_seg, new_seg_opt = state.seg_params, state.seg_opt
+        loss, (res, new_seg_state), seg_g, prior_g = _value_and_grads(
+            compute_loss, state.seg_params, prior_batch)
+        metrics = {k: v.detach() for k, v in res.items()}
+        ok = _finite(loss, cfg)
+        new_seg, new_seg_opt = _seg_update(cfg, seg_upd, state, seg_g, ok,
+                                           lr_scale)
         metrics["nan_skipped"] = ~ok
         if not has_prior:
             return JointTrainState(new_seg, new_seg_state, new_seg_opt,
                                    state.prior_params, state.prior_opt,
                                    state.step + 1), metrics
 
-        wd = None
-        if hasattr(prior, "param_groups"):
-            wd = T.tree_map(
-                lambda s: cfg.flow_weight_decay if s == "flow" else 0.0,
-                prior.param_groups(T.tree_select(prior_batch, 0)))
+        wd = _flow_weight_decay(prior, T.tree_select(prior_batch, 0), cfg)
         new_pb, new_ob = prior_upd(prior_batch, prior_g, prior_opt_batch,
                                    cfg.prior_lr * lr_scale, weight_decay=wd)
         if hasattr(prior, "enforce_convexity"):
@@ -219,9 +215,55 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
     return step
 
 
+def _finite(loss: torch.Tensor, cfg: JointTrainConfig) -> torch.Tensor:
+    """The NaN guard: a device flag, true when the step may update."""
+    if cfg.nan_guard:
+        return torch.isfinite(loss)
+    return torch.ones((), dtype=torch.bool, device=loss.device)
+
+
+def _seg_update(cfg: JointTrainConfig, seg_upd: Callable, state, seg_g,
+                ok: torch.Tensor, lr_scale):
+    """The shared seg net's optimizer step, kept only where ``ok``."""
+    if not cfg.train_segmentation:
+        return state.seg_params, state.seg_opt
+    new_seg, new_seg_opt = seg_upd(state.seg_params, seg_g, state.seg_opt,
+                                   cfg.lr * lr_scale)
+    return (T.tree_where(ok, new_seg, state.seg_params),
+            T.tree_where(ok, new_seg_opt, state.seg_opt))
+
+
+def _flow_weight_decay(child, params: Params, cfg: JointTrainConfig):
+    """Per-leaf weight decay of one prior: the flow group's, else 0."""
+    if not hasattr(child, "param_groups"):
+        return None
+    return T.tree_map(lambda s: cfg.flow_weight_decay if s == "flow" else 0.0,
+                      child.param_groups(params))
+
+
 def _unflatten(like: Params, leaves) -> Params:
     it = iter(leaves)
     return T.tree_map(lambda _: next(it), like)
+
+
+def _value_and_grads(compute_loss: Callable, seg_params: Params,
+                     prior_params: Params):
+    """``compute_loss(seg, prior) -> (loss, aux)`` and its grads w.r.t.
+    both trees (zeros where a leaf does not reach the loss): returns
+    ``(loss, aux, seg_grads, prior_grads)``."""
+    seg_leaves = T.tree_map(lambda x: x.detach().requires_grad_(True),
+                            seg_params)
+    prior_leaves = T.tree_map(lambda x: x.detach().requires_grad_(True),
+                              prior_params)
+    with torch.enable_grad():
+        loss, aux = compute_loss(seg_leaves, prior_leaves)
+        wrt = T.tree_leaves(seg_leaves) + T.tree_leaves(prior_leaves)
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    grads = [torch.zeros_like(w) if g is None else g
+             for w, g in zip(wrt, grads)]
+    n_seg = len(T.tree_leaves(seg_leaves))
+    return (loss.detach(), aux, _unflatten(seg_params, grads[:n_seg]),
+            _unflatten(prior_params, grads[n_seg:]))
 
 
 def epoch_batches(num_images: int, batch_size: int, rng
@@ -264,6 +306,206 @@ def make_joint_epoch_fn(wrapper, cfg: JointTrainConfig,
                 "grid": data["grid"][idx] if per_frame_grid
                 else data["grid"],
                 "target": data["target"][idx],
+                "index": idx, "weight": wgt, "lr_scale": lr_scale,
+            }
+            state, metrics = step(state, batch)
+            history.append(metrics)
+        return state, {k: torch.stack([m[k] for m in history])
+                       for k in history[0]}
+
+    return epoch
+
+
+# --- multi-object joint training ---------------------------------------------
+
+
+class MultiObjectTrainState(NamedTuple):
+    """The joint state for multi-object sequences: the shared seg net
+    emits one channel per object slot; each frame carries a stack of K
+    child priors (``nn.multi_prior.MultiPriorModule``, fixed capacity)
+    with per-slot optimizer state (counts (T, K)) and an active mask."""
+
+    seg_params: Params
+    seg_state: Any
+    seg_opt: Any
+    prior_params: Params  # {'children': (T, K, ...)}
+    prior_opt: Any  # per (frame, child) slot, count (T, K)
+    active: torch.Tensor  # (T, K) bool
+    step: torch.Tensor
+
+
+def multi_object_train_init(wrapper, generator: Optional[torch.Generator],
+                            num_images: int, cfg: JointTrainConfig,
+                            initial_count: int = 1, seg_init=None,
+                            prior_init=None) -> MultiObjectTrainState:
+    """``wrapper.prior_module`` is a ``MultiPriorModule`` of capacity
+    ``max_priors`` and the seg module emits ``max_priors`` channels. The
+    first ``initial_count`` slots of every frame start active."""
+    mp = wrapper.prior_module
+    gen = make_generator(generator)
+    seg_params, seg_state, seg_opt = _seg_init(wrapper, gen, cfg, seg_init)
+    prior_params = prior_init if prior_init is not None else \
+        T.stack_trees([mp.init(gen) for _ in range(num_images)])
+    prior_opt = _optim(cfg.prior_optimizer)[0](
+        prior_params["children"], (num_images, mp.max_priors))
+    dev = T.tree_leaves(seg_params)[0].device
+    active = torch.zeros((num_images, mp.max_priors), dtype=torch.bool,
+                         device=dev)
+    active[:, :initial_count] = True
+    return MultiObjectTrainState(seg_params, seg_state, seg_opt,
+                                 prior_params, prior_opt, active,
+                                 torch.zeros((), dtype=torch.int32,
+                                             device=dev))
+
+
+def assure_multi_prior_count(wrapper, state: MultiObjectTrainState,
+                             cfg: JointTrainConfig, count: int,
+                             key) -> MultiObjectTrainState:
+    """Set every frame's active child count to ``count``. Inactive slots
+    below ``count`` get fresh child params (from ``key``, an int seed or a
+    ``torch.Generator``), zeroed moments and count 0, so their Adamax bias
+    correction restarts; existing children and their state stay bitwise
+    as they were. Shrinking only lowers the active mask. The step masks by
+    ``active``, so its graph does not depend on the count."""
+    mp = wrapper.prior_module
+    if count > mp.max_priors:
+        raise ValueError(
+            f"count {count} exceeds static capacity {mp.max_priors}")
+    t = state.active.shape[0]
+    gen = make_generator(key)
+    slot = torch.arange(mp.max_priors, device=state.active.device)
+    target = torch.broadcast_to(slot < count, state.active.shape)
+    need_fresh = ~state.active & target
+    fresh = T.stack_trees([mp.init(gen) for _ in range(t)])["children"]
+    fresh_opt = _optim(cfg.prior_optimizer)[0](fresh, (t, mp.max_priors))
+    keep = ~need_fresh  # (the state's trees first: they keep its key order)
+    children = T.tree_where(keep, state.prior_params["children"], fresh)
+    prior_opt = T.tree_where(keep, state.prior_opt, fresh_opt)
+    return state._replace(
+        prior_params=dict(state.prior_params, children=children),
+        prior_opt=prior_opt, active=target.clone())
+
+
+def _object_losses(cfg: JointTrainConfig, seg, prior, tgt, labeled):
+    """Each (image, object)'s joint loss (B, K): the sssdms-weighted BCE
+    of seg against the object's unaries over the labeled pixels, plus beta
+    times the soft-clipped SE of prior against seg. ``seg``, ``prior``,
+    ``tgt``: (B, H, W, K); ``labeled``: (B, H, W). The class weights are
+    counted per image and object."""
+    lab = labeled.to(seg.dtype)[..., None]
+    is_bg = (tgt >= 0.5).to(seg.dtype)
+    bg_count = (is_bg * lab).sum(dim=(1, 2))
+    fg_count = torch.clamp_min(((1.0 - is_bg) * lab).sum(dim=(1, 2)), 1.0)
+    w_fg = torch.round(bg_count / fg_count / 10.0) + 1.0  # sssdms
+    w = torch.where(is_bg > 0, torch.ones_like(tgt), w_fg[:, None, None]) \
+        * lab
+    raw = bce(seg, tgt, reduction="none")
+    seg_loss = cfg.alpha * (raw * w).sum(dim=(1, 2)) / torch.clamp_min(
+        w.sum(dim=(1, 2)), 1.0)
+    pen = cfg.beta * torch.mean((prior - seg) ** 2, dim=(1, 2))
+    if cfg.clip_penalty:
+        scale = torch.where(pen > seg_loss,
+                            seg_loss / torch.clamp_min(pen, 1e-12),
+                            torch.ones_like(pen)).detach()
+        pen = pen * scale
+    return seg_loss + pen
+
+
+def make_multi_object_train_step(wrapper, cfg: JointTrainConfig
+                                 ) -> Callable:
+    """Build ``step(state, batch) -> (state, metrics)`` for multi-object
+    joint training.
+
+    ``batch``: 'image' (B, H, W, C), 'features' (B, H, W, F), 'grid' (N,
+    2) or (B, N, 2), 'target_obj' (B, H, W, K) per-object unaries (fg 0
+    per channel), 'labeled' (B, H, W) bool, 'index' (B,); optional
+    'weight' (B,) and 'lr_scale'. The loss of each image is the mean of
+    its active objects' losses (:func:`_object_losses`), then the
+    weighted mean over the batch. Inactive slots, weight-0 samples and a
+    non-finite step leave the children and their state as they were."""
+    seg_upd = _optim(cfg.optimizer)[1]
+    prior_upd = _optim(cfg.prior_optimizer)[1]
+    mp = wrapper.prior_module
+
+    def step(state: MultiObjectTrainState, batch):
+        idx = torch.as_tensor(batch["index"], dtype=torch.long,
+                              device=batch["image"].device)
+        lr_scale = batch.get("lr_scale", 1.0)
+        weight = batch.get("weight")
+        children = T.tree_map(lambda x: x[idx],
+                              state.prior_params["children"])
+        opt_batch = T.tree_map(lambda x: x[idx], state.prior_opt)
+        active_b = state.active[idx]
+
+        def compute_loss(seg_params, children_):
+            seg, new_seg_state = _seg_forward(wrapper, cfg, seg_params,
+                                              state.seg_state, batch)
+            prior = wrapper.process_prior_output(
+                mp.apply_images(children_, batch["grid"]))
+            per_obj = _object_losses(cfg, seg, prior.reshape(seg.shape),
+                                     batch["target_obj"], batch["labeled"])
+            a = active_b.to(per_obj.dtype)
+            per = (per_obj * a).sum(dim=1) / torch.clamp_min(a.sum(dim=1),
+                                                             1.0)
+            if weight is not None:
+                loss = (per * weight).sum() / torch.clamp_min(weight.sum(),
+                                                              1.0)
+            else:
+                loss = per.mean()
+            return loss, new_seg_state
+
+        loss, new_seg_state, seg_g, child_g = _value_and_grads(
+            compute_loss, state.seg_params, children)
+        ok = _finite(loss, cfg)
+        new_seg, new_seg_opt = _seg_update(cfg, seg_upd, state, seg_g, ok,
+                                           lr_scale)
+        wd = _flow_weight_decay(
+            mp.child, T.tree_map(lambda x: x[0, 0], children), cfg)
+        new_children, new_opt = prior_upd(children, child_g, opt_batch,
+                                          cfg.prior_lr * lr_scale,
+                                          weight_decay=wd)
+        if hasattr(mp.child, "enforce_convexity"):
+            new_children = mp.child.enforce_convexity(new_children)
+        keep = active_b & ok
+        if weight is not None:
+            keep = keep & (weight > 0)[:, None]
+        new_children = T.tree_where(keep, new_children, children)
+        new_opt = T.tree_where(keep, new_opt, opt_batch)
+        scattered = T.tree_map(lambda s, v: s.index_copy(0, idx, v),
+                               state.prior_params["children"], new_children)
+        scattered_opt = T.tree_map(lambda s, v: s.index_copy(0, idx, v),
+                                   state.prior_opt, new_opt)
+        return MultiObjectTrainState(
+            new_seg, new_seg_state, new_seg_opt,
+            dict(state.prior_params, children=scattered), scattered_opt,
+            state.active, state.step + 1), {"loss": loss,
+                                            "nan_skipped": ~ok}
+
+    return step
+
+
+def make_multi_object_epoch_fn(wrapper, cfg: JointTrainConfig) -> Callable:
+    """Build ``epoch(state, data, idx_mat, wgt_mat, lr_scale=1.0) ->
+    (state, metrics)``: the multi-object step over the batch plan, each
+    batch gathered from ``data`` ('image' (T, H, W, C), 'features',
+    'grid' (N, 2) or (T, N, 2), 'target_obj' (T, H, W, K), 'labeled' (T,
+    H, W)); the metrics come back stacked, one value per batch."""
+    step = make_multi_object_train_step(wrapper, cfg)
+
+    def epoch(state, data, idx_mat, wgt_mat, lr_scale=1.0):
+        dev = data["image"].device
+        idx_mat = torch.as_tensor(idx_mat, dtype=torch.long, device=dev)
+        wgt_mat = torch.as_tensor(wgt_mat, device=dev)
+        per_frame_grid = data["grid"].ndim == 3
+        history = []
+        for idx, wgt in zip(idx_mat, wgt_mat):
+            batch = {
+                "image": data["image"][idx],
+                "features": data["features"][idx],
+                "grid": data["grid"][idx] if per_frame_grid
+                else data["grid"],
+                "target_obj": data["target_obj"][idx],
+                "labeled": data["labeled"][idx],
                 "index": idx, "weight": wgt, "lr_scale": lr_scale,
             }
             state, metrics = step(state, batch)

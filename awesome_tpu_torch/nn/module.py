@@ -13,7 +13,7 @@ the same contract as the JAX param trees.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import torch
 
@@ -22,12 +22,15 @@ from awesome_tpu_torch.device import DeviceLike, resolve_device
 Params = Any
 
 
-def make_generator(generator: Optional[torch.Generator] = None,
+def make_generator(generator: Union[torch.Generator, int, None] = None,
                    seed: int = 0) -> torch.Generator:
-    """The given CPU generator, or a fresh one seeded with ``seed``."""
-    if generator is not None:
+    """The given CPU generator; for an int, a fresh one seeded with it
+    (the port's stand-in for a JAX key); else a fresh one seeded with
+    ``seed``."""
+    if isinstance(generator, torch.Generator):
         return generator
-    return torch.Generator().manual_seed(seed)
+    return torch.Generator().manual_seed(
+        seed if generator is None else int(generator))
 
 
 class Module(torch.nn.Module):

@@ -62,11 +62,34 @@ Phases, each printing its own line (any failure exits nonzero):
     ``JointTrainConfig()``: 20 steps over 8 images of 64x64 in batches of
     4 (finite losses that decrease), then 3 steps on 2 images of 480x640;
     ms per step, peak memory and the device's idle share;
-12. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
+12. multi-object joint training, the FBMS runner's multi-object stage
+    (``train_multi_object``: a full-width UNet(4, 2) and two bench-model
+    children per frame, ``JointTrainConfig()``, the children pretrained
+    by the fused fit (K2 at G = frames x 2) with the active slots as
+    ``valid_mask``, growth from one slot to two with the grown slots
+    refitted, the tracker's "Loss", a 'latest' checkpoint every epoch and
+    'best' through ``atomic_dir``), under
+    ``torch.use_deterministic_algorithms(True)``: (a) 8 frames of 64x64,
+    batch 4, 6 epochs, 200 pretrain steps, growth at epoch 2; the
+    checkpoint of epoch 3 restored into a fresh state and trained to
+    epoch 6 must equal the uninterrupted run bitwise, leaf for leaf, and
+    its tracker too; the run and its resume again without the flag (only
+    the package's own settings), equal to the flagged run and resumed
+    bitwise; finite losses that fall; (b) 4 frames of 480x640,
+    batch 2, 2 epochs, 100 pretrain steps, growth at epoch 1; ms/step,
+    peak memory and the device's idle share of both;
+13. the spatio-temporal fit: one 3-channel FBMS prior for 4 frames of
+    480x640 (``sequence_points``), Adamax lr 1e-3, 3 epochs: finite losses,
+    a falling epoch loss, ms per frame step and the idle share; and the
+    zoo: ``apply_prefits(prefit_flow_identity=True, zoo=...)`` twice, the
+    second call loading bitwise what the first fitted;
+14. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
     K1/K2) its time at its path's shape, its launches on that path, the
     steps, launches per step, its bound on this card, the plain version's
-    time, and its error against the plain version at that shape;
-13. the card's name and power limit, and last the result line
+    time, and its error against the plain version at that shape; K2 also
+    at the multi-object paths' shapes (G = 16 at 64x64, G = 8 at 480x640),
+    each printed as a ``kernel_vs_plain`` line too;
+15. the card's name and power limit, and last the result line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Phases 5-8 also profile a 20-step window of their fit with
@@ -81,6 +104,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -715,6 +739,396 @@ def joint_path(device, small=(64, 64), images=8, batch=4, epochs=10,
     return out
 
 
+def multi_object_data(h: int, w: int, t: int, seed: int, device, k: int = 2,
+                      labeled_share: float = 0.1):
+    """``t`` frames of uniform noise with ``k`` ellipses (the objects,
+    drifting apart) brighter on top; features; the clean grid; the
+    per-object unaries (T, H, W, K), fg encoded 0 per channel; a sparse
+    labeled mask (T, H, W); and the children's point targets (T, K, N, 1)
+    with unlabeled points as bg, as the FBMS runner builds them."""
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    tgt = np.ones((t, h, w, k), np.float32)
+    for i in range(t):
+        for j in range(k):
+            cy = h * (0.3 + 0.4 * j / max(k - 1, 1) + 0.01 * i)
+            cx = w * (0.3 + 0.4 * j / max(k - 1, 1) - 0.01 * i)
+            inside = (((yy - cy) / (0.14 * h)) ** 2
+                      + ((xx - cx) / (0.12 * w)) ** 2) <= 1.0
+            tgt[i, :, :, j] = 1.0 - inside
+    fg = (tgt < 0.5).any(-1)
+    image = 0.5 * rng.uniform(size=(t, h, w, 3)) + 0.5 * fg[..., None]
+    feats = rng.uniform(size=(t, h, w, 1))
+    labeled = rng.uniform(size=(t, h, w)) < labeled_share
+    pt_tgt = np.where(labeled[:, None], np.moveaxis(tgt, -1, 1), 1.0)
+
+    def dev(a, dtype=torch.float32):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=device)
+
+    data = {"image": dev(image), "features": dev(feats),
+            "grid": G.flatten_grid(G.pixel_grid((h, w), device=device)),
+            "target_obj": dev(tgt), "labeled": dev(labeled, torch.bool)}
+    return data, dev(pt_tgt.reshape(t, k, h * w, 1))
+
+
+def multi_object_wrapper(h: int, w: int, device, max_objects: int = 2):
+    """The FBMS multi-object stage's model (``runner/fbms_runner.py``): a
+    full-width UNet(4, K) with one channel per object slot and, per
+    frame, K children of the FBMS prior (channels 2, flow 32 x 12 with
+    tanh, ICNN 130 x 2: the bench model), on the clean grid."""
+    from awesome_tpu_torch.nn.multi_prior import MultiPriorModule
+    from awesome_tpu_torch.nn.seg import UNet
+    from awesome_tpu_torch.nn.wrapper import WrapperModule
+
+    return WrapperModule(
+        segmentation_module=UNet(in_chn=4, out_chn=max_objects,
+                                 device=device),
+        prior_module=MultiPriorModule(bench_model((h, w), device),
+                                      max_priors=max_objects),
+        input_mode="image", prior_arg_mode="param_clean_grid",
+        seg_stateful=True)
+
+
+def train_multi_object(wrapper, data, pt_targets, cfg, epochs: int,
+                       batch: int, pretrain_steps: int, grow_at: dict,
+                       ckdir: str, seed: int = 0, resume_from=None,
+                       after_epoch=None):
+    """The multi-object stage of the FBMS runner
+    (``runner/fbms_runner.py:_train_joint_multi_object_impl``) at LR scale
+    1: the state from ``seed`` with one active slot; the children's
+    pretrain (``pretrain_steps`` fused steps on the active slots); per
+    epoch, growth at the epochs of ``grow_at`` ({epoch: count}: fresh
+    slots, then refitted as long), the epoch fn over the seeded batch
+    plan, the tracker's train "Loss", 'best' when it improves and 'latest'
+    after every epoch, each through ``atomic_dir``. With ``resume_from``
+    the state, epoch and tracker come from ``restore_resumable`` (before
+    the pretrain, which a restored state already holds) and the plan
+    stream is fast-forwarded past the trained epochs. Returns (state,
+    tracker, per-epoch losses, per-epoch seconds of the epoch fn)."""
+    import torch
+
+    from awesome_tpu_torch.fit.checkpoint import (
+        AgentCheckpoint,
+        atomic_dir,
+        restore_resumable,
+        save_pytree,
+    )
+    from awesome_tpu_torch.fit.prior_fit import (
+        FitConfig,
+        fit_multi_object_priors,
+    )
+    from awesome_tpu_torch.fit.tracker import Tracker
+    from awesome_tpu_torch.fit.trainer import (
+        assure_multi_prior_count,
+        epoch_batches,
+        make_multi_object_epoch_fn,
+        multi_object_train_init,
+    )
+
+    t = data["image"].shape[0]
+    child = wrapper.prior_module.child
+    state = multi_object_train_init(
+        wrapper, torch.Generator().manual_seed(seed), t, cfg,
+        initial_count=1)
+    tracker = Tracker(primary_metric="Loss", primary_mode="train")
+    start = 0
+    if resume_from is not None:
+        res = restore_resumable(resume_from, "multi", state, epochs)
+        state, start, tracker = res["state"], res["epoch"], res["tracker"]
+
+    def fit_children(st, slots):
+        # 'equal' class weights: the per-object targets are sparse points
+        fitted, _ = fit_multi_object_priors(
+            child, st.prior_params["children"], data["grid"], pt_targets,
+            FitConfig(num_steps=pretrain_steps, lr=1e-3, weight_mode="equal",
+                      nan_guard_grads=False, fused=True),
+            valid_mask=slots)
+        return st._replace(prior_params=dict(st.prior_params,
+                                             children=fitted))
+
+    def save(st, tag, epoch):
+        with atomic_dir(os.path.join(ckdir, tag)) as tmp:
+            AgentCheckpoint(
+                f"fbms_joint_{tag}",
+                {"seg": st.seg_params, "prior": st.prior_params},
+                tracker=tracker.to_dict(), config={},
+                extra={"epoch": epoch, "state_kind": "multi",
+                       "stopped_early": False}).save(tmp)
+            save_pytree(tuple(st), os.path.join(tmp, "train_state"))
+
+    if pretrain_steps and start == 0:
+        state = fit_children(state, state.active)
+    epoch_fn = make_multi_object_epoch_fn(wrapper, cfg)
+    rng = np.random.default_rng(seed)
+    for _ in range(start):
+        epoch_batches(t, batch, rng)
+    losses, seconds = [], []
+    for e in range(start, epochs):
+        if e in grow_at:
+            prev = state.active
+            state = assure_multi_prior_count(wrapper, state, cfg, grow_at[e],
+                                             seed + 1000 + e)
+            state = fit_children(state, state.active & ~prev)
+        idx, wgt = epoch_batches(t, batch, rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = epoch_fn(state, data, idx, wgt)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(met["loss"].cpu().numpy())
+        tracker.epoch = e + 1
+        tracker.epoch_metric("Loss", float(losses[-1].mean()), "train")
+        if tracker.is_current_state_best_model():
+            save(state, "best", e + 1)
+        save(state, "latest", e + 1)
+        if after_epoch is not None:
+            after_epoch(e + 1)
+    return state, tracker, losses, seconds
+
+
+def first_difference(a, b):
+    """The key path of the first leaf where two states differ in dtype or
+    in any bit ('structure' when their leaves differ), else None."""
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+
+    pa = dict(T.tree_flatten_with_path(a))
+    pb = dict(T.tree_flatten_with_path(b))
+    if pa.keys() != pb.keys():
+        return "structure"
+    for path, x in pa.items():
+        y = pb[path]
+        if x is None and y is None:
+            continue
+        if (x is None or y is None or x.dtype != y.dtype
+                or not torch.equal(x, y)):
+            return "/".join(path)
+    return None
+
+
+def multi_object_path(device, shape, frames: int, batch: int, epochs: int,
+                      pretrain_steps: int, grow_at: dict, resume_at=None,
+                      falling: bool = True) -> dict:
+    """Multi-object joint training at ``shape`` (see
+    :func:`train_multi_object`), with ``JointTrainConfig()``, under
+    ``torch.use_deterministic_algorithms(True)`` (a nondeterministic op
+    raises). K2 launches = fused pretrain steps, at G = frames x slots.
+    With ``resume_at``: the checkpoint directory as it stood after that
+    epoch is restored into a fresh state and trained to the end, and every
+    leaf of the final state must equal the uninterrupted run's bitwise,
+    and so must the tracker; then the run and its resume again without
+    the flag, with only the settings of the package's import (what a
+    user's script gets), which must equal the flagged run bitwise and
+    resume bitwise too. Finite losses; with ``falling`` the last
+    epoch's mean below the first's. ms/step (the epoch fn's, after the
+    first epoch), peak memory and the device's idle share."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.trainer import (
+        JointTrainConfig,
+        epoch_batches,
+        make_multi_object_epoch_fn,
+    )
+
+    cfg = JointTrainConfig()
+    wrapper = multi_object_wrapper(*shape, device)
+    data, pt_targets = multi_object_data(*shape, frames, 8, device)
+    k = wrapper.prior_module.max_priors
+    root = tempfile.mkdtemp(prefix="multi_object_")
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        def snapshot_to(tag):
+            def snapshot(epoch):
+                if epoch == resume_at:
+                    shutil.copytree(os.path.join(root, tag),
+                                    os.path.join(root, tag + "_preempted"))
+            return snapshot
+
+        def resumed_equal(state, tracker, tag):
+            resumed, rtracker, rlosses, _ = train_multi_object(
+                wrapper, data, pt_targets, cfg, epochs, batch,
+                pretrain_steps, grow_at, os.path.join(root, tag + "_resumed"),
+                resume_from=os.path.join(root, tag + "_preempted"))
+            diff = first_difference(state, resumed)
+            if diff is not None:
+                raise AssertionError(f"resume from epoch {resume_at} is not "
+                                     f"bitwise ({tag}): first difference "
+                                     f"at {diff}")
+            if rtracker.to_dict() != tracker.to_dict():
+                raise AssertionError(f"the resumed tracker differs ({tag})")
+            return {"from_epoch": resume_at, "epochs_trained": len(rlosses),
+                    "leaves_bitwise_equal":
+                        len(T.tree_flatten_with_path(state)),
+                    "tracker_equal": True}
+
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        state, tracker, losses, secs = train_multi_object(
+            wrapper, data, pt_targets, cfg, epochs, batch, pretrain_steps,
+            grow_at, os.path.join(root, "run"), after_epoch=snapshot_to("run"))
+        wall = time.perf_counter() - t0
+        k2, _, _, _, ran = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = pretrain_steps * (1 + len(grow_at))
+        if not k2 == ran == want:
+            raise AssertionError(f"multi-object path: K2 launched {k2} "
+                                 f"times in {ran} fit steps, want {want}")
+        hist = np.concatenate(losses)
+        if not np.isfinite(hist).all():
+            raise AssertionError("non-finite loss in multi-object training")
+        if falling and not losses[-1].mean() < losses[0].mean():
+            raise AssertionError(f"multi-object loss did not decrease: "
+                                 f"{losses[0].mean()} -> "
+                                 f"{losses[-1].mean()}")
+        steps = int(state.step)
+        per_epoch = steps // epochs
+        timed = secs[1:] or secs
+        ms = 1e3 * sum(timed) / (per_epoch * len(timed))
+        out = {
+            "phase": "multi_object_path", "shape": list(shape),
+            "frames": frames, "slots": k, "batch": batch, "epochs": epochs,
+            "grow_at": {str(e): c for e, c in grow_at.items()},
+            "steps": steps, "loss": [float(v) for v in hist],
+            "epoch_loss": [float(v.mean()) for v in losses],
+            "ms_per_step": ms, "first_epoch_ms_per_step":
+                1e3 * secs[0] / per_epoch,
+            "wall_s": wall, "peak_memory_gib": peak,
+            "k2_launches": k2, "k2_group": frames * k,
+            "pretrain_steps": pretrain_steps,
+            "active_slots": int(state.active.sum()),
+            "deterministic_algorithms": True,
+        }
+        if resume_at is not None:
+            out["resume"] = resumed_equal(state, tracker, "run")
+            # the same without the flag, with only what the package's
+            # import sets: equal to the flagged run, and resumed bitwise
+            torch.use_deterministic_algorithms(False)
+            dstate, dtracker, _, _ = train_multi_object(
+                wrapper, data, pt_targets, cfg, epochs, batch,
+                pretrain_steps, grow_at, os.path.join(root, "default"),
+                after_epoch=snapshot_to("default"))
+            diff = first_difference(state, dstate)
+            if diff is not None:
+                raise AssertionError(
+                    f"the run with only the package's settings differs from "
+                    f"the flagged run: first difference at {diff}")
+            out["resume_default_settings"] = dict(
+                resumed_equal(dstate, dtracker, "default"),
+                equal_to_flagged_run=True)
+            torch.use_deterministic_algorithms(True)
+        epoch_fn = make_multi_object_epoch_fn(wrapper, cfg)
+        idx, wgt = epoch_batches(frames, batch, np.random.default_rng(1))
+        out["profile"] = device_profile(
+            lambda: epoch_fn(state, data, idx, wgt), per_epoch, ms)
+    finally:
+        torch.use_deterministic_algorithms(det)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def spatiotemporal_path(device, shape=(480, 640), frames: int = 4,
+                        epochs: int = 3) -> dict:
+    """One shared (x, y, t) prior for a sequence: the 3-channel FBMS prior
+    (flow 32 x 12 with tanh, ICNN 130 x 2; its norm fitted on the (100, H,
+    W) grid), ``frames`` frames at ``shape`` from ``sequence_points`` on
+    drifting ellipse unaries with 10% of the points labeled,
+    ``FitConfig(optimizer='adamax', lr=1e-3)``, ``epochs`` epochs: finite
+    losses and a falling epoch loss; ms per frame step and the device's
+    idle share."""
+    import torch
+
+    from awesome_tpu_torch.fit.prior_fit import FitConfig
+    from awesome_tpu_torch.fit.spatiotemporal import (
+        make_spatiotemporal_fit_fn,
+        sequence_points,
+    )
+    from awesome_tpu_torch.nn.path_connected import (
+        real_nvp_path_connected_net,
+    )
+
+    h, w = shape
+    model = real_nvp_path_connected_net(
+        channels=3, hidden_units=32, flow_n_flows=12, flow_output_fn="tanh",
+        spatial_shape=shape, convex_net_hidden_units=130,
+        convex_net_hidden_layers=2, device=device)
+    pts = sequence_points(shape, frames, device=device)
+    tgt = torch.stack([ellipse_target(h, w, device, (0.0, 0.03 * f))
+                       for f in range(frames)])
+    labeled = (torch.rand((frames, h * w),
+                          generator=torch.Generator().manual_seed(12))
+               < 0.1).to(device)
+    params = model.init(torch.Generator().manual_seed(13))
+    cfg = FitConfig(optimizer="adamax", lr=1e-3)
+    one = make_spatiotemporal_fit_fn(model, cfg, 1)
+    one(params, pts, tgt, labeled)  # warm-up
+    fit = make_spatiotemporal_fit_fn(model, cfg, epochs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, aux = fit(params, pts, tgt, labeled)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hist = aux["epoch_loss"].cpu().numpy()
+    check_hist(hist, "the spatio-temporal fit")
+    ms = 1e3 * dt / (epochs * frames)
+    return {
+        "phase": "spatiotemporal_path", "shape": list(shape),
+        "frames": frames, "epochs": epochs, "epoch_loss":
+            [float(v) for v in hist], "ms_per_frame_step": ms,
+        "seconds": dt,
+        "profile": device_profile(lambda: one(params, pts, tgt, labeled),
+                                  frames, ms),
+    }
+
+
+def zoo_check(device) -> dict:
+    """``apply_prefits(prefit_flow_identity=True, zoo=Zoo(tmp))`` twice on
+    the bench model at 64x64: the first call fits the flow and caches it,
+    the second loads it, bitwise the same."""
+    import tempfile
+
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.prior_fit import apply_prefits
+    from awesome_tpu_torch.nn.zoo import Zoo
+
+    model = bench_model((64, 64), device)
+    pts = G.flatten_grid(G.pixel_grid((64, 64), device=device))
+    params = model.init(torch.Generator().manual_seed(14))
+    with tempfile.TemporaryDirectory() as root:
+        zoo = Zoo(root)
+        t0 = time.perf_counter()
+        first = apply_prefits(model, params, pts, prefit_flow_identity=True,
+                              zoo=zoo)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        entries = len(os.listdir(root))
+        again = apply_prefits(model, params, pts, prefit_flow_identity=True,
+                              zoo=zoo)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    fitted = any(not torch.equal(a, b) for a, b in zip(
+        T.tree_leaves(first["flow"]), T.tree_leaves(params["flow"])))
+    if not (fitted and entries == 3 and first_difference(first, again)
+            is None):
+        raise AssertionError("the zoo's second prefit is not the first's")
+    return {"phase": "zoo", "zoo_files": entries, "fit_s": t1 - t0,
+            "load_s": t2 - t1, "bitwise_equal": True}
+
+
 # (what it serves, width, hidden layers, in_features) of the ICNNs the
 # fused ICNN kernels take
 ICNN_CONFIGS = (
@@ -1271,6 +1685,14 @@ def main() -> int:
         BF16_BATCH_STEPS, dev)
     print(json.dumps(res), flush=True)
     print(json.dumps(joint_path(dev)), flush=True)
+    mo_small = multi_object_path(dev, (64, 64), 8, 4, 6, 200, {2: 2},
+                                 resume_at=3)
+    print(json.dumps(mo_small), flush=True)
+    mo_large = multi_object_path(dev, (480, 640), 4, 2, 2, 100, {1: 2},
+                                 falling=False)
+    print(json.dumps(mo_large), flush=True)
+    print(json.dumps(spatiotemporal_path(dev)), flush=True)
+    print(json.dumps(zoo_check(dev)), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
@@ -1290,6 +1712,19 @@ def main() -> int:
                      8, 9, bb_launches, bb_steps, 50, dev, use_bf16=True,
                      per_image=True),
     ] + icnn_entries(k4, k5, convex_steps, 50, dev)
+    for mo, (h, w), seed, reps in ((mo_small, (64, 64), 15, 50),
+                                   (mo_large, (480, 640), 17, 10)):
+        entry = kernel_entry(
+            f"flagship_loss_grad (K2, G={mo['k2_group']} at {h}x{w}, "
+            "multi-object children)", replaces, bench_model((h, w), dev),
+            h * w, mo["k2_group"], seed, mo["k2_launches"],
+            mo["k2_launches"], reps, dev)
+        print(json.dumps({"phase": "kernel_vs_plain", "model": "bench",
+                          "path": "multi_object", "n": h * w,
+                          "g": mo["k2_group"],
+                          "max_abs_err": entry["max_abs_err"],
+                          "bitwise_repeat": True}), flush=True)
+        kernels.append(entry)
     print("library: no single PyTorch call computes the fused flagship loss "
           "and gradient, a fused ICNN forward, or its weight grads; "
           "library_ms is null")

@@ -249,8 +249,9 @@ def test_apply_prefits_pass_through_and_zoo():
     pts = torch.tensor(_grid(6, 6))
     assert TF.apply_prefits(tm, params, pts, prefit_flow_identity=True,
                             prefit_convex=True) is params
-    with pytest.raises(NotImplementedError, match="zoo"):
-        TF.apply_prefits(tm, params, pts, zoo=object())
+    # a model without flow and ICNN parts never reaches the zoo
+    assert TF.apply_prefits(tm, params, pts, prefit_flow_identity=True,
+                            zoo=object()) is params
     jm, fm = _flagship(6, 6)
     fp = fm.init()
     both = TF.apply_prefits(fm, fp, pts, prefit_flow_identity=True,

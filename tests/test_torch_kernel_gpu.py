@@ -75,6 +75,20 @@ def test_cuda_kernel_matches_plain(cuda_device, width, layers, tp):
     _assert_fp32_close(loss, grads, ref_loss, ref, 2)
 
 
+@pytest.mark.gpu
+def test_cuda_k2_sixteen_images_match_plain(cuda_device):
+    """K2 at G = 16 (the multi-object children's fit: 8 frames x 2 slots
+    at 64x64) against the plain version; two launches bitwise equal."""
+    spec, stacked, flat, x, tgt, wts = _flagship_inputs(
+        cuda_device, 130, 2, 16, g=16, n=64 * 64)
+    f = TP.FlagshipLossGrad(spec, True, 16, None)
+    loss, grads = f.flat(flat, x, tgt, wts)
+    loss2, grads2 = f.flat(flat, x, tgt, wts)
+    assert torch.equal(loss, loss2) and torch.equal(grads, grads2)
+    ref_loss, ref = TP.flagship_loss_grad_plain(spec, stacked, x, tgt, wts)
+    _assert_fp32_close(loss, grads, ref_loss, ref, 16)
+
+
 def _nrel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b)
                  / torch.linalg.vector_norm(b))
