@@ -124,3 +124,21 @@ def plateau_update(state: PlateauState, loss, factor: float = 0.5,
         state.scale)
     num_bad = torch.where(reduce_now, torch.zeros_like(num_bad), num_bad)
     return PlateauState(best=best, num_bad=num_bad, scale=scale)
+
+
+def wn_param_groups(params: Params, weight_decay: float) -> Params:
+    """Weight-decay tree that decays ONLY weight-norm magnitude leaves
+    ('g' keys of WNLinear params): the reference's param-group splitter
+    for weight-normalized modules (`awesome/util/torch.py:19-35`
+    ``get_weight_normalized_param_groups``, wired by
+    ``weight_decay_on_weight_norm_modules`` in the config)."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (weight_decay if k == "g" else walk(v))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return 0.0
+
+    return walk(params)

@@ -1,0 +1,127 @@
+"""Run a single convexity experiment from a config; counterpart of
+``scripts/run.py``.
+
+    python -m awesome_tpu_torch.run [--config-path my_experiment.yaml] \\
+        [--num-epochs 100 ...any config field as a flag...]
+
+It builds the data (the on-disk convexity dataset, or the synthetic
+replica), pretrains the per-image priors, trains seg net and prior jointly
+per image, evaluates, checkpoints and writes a run folder. It runs on the
+card; ``--device cpu`` runs it on the CPU. A config file may be one this
+package or the JAX package wrote, or an unmodified reference YAML.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import re
+from typing import List, Optional
+
+
+def config_logging() -> None:
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+
+
+def get_config(argv: Optional[List[str]] = None):
+    from awesome_tpu_torch.runner.config import AwesomeConfig, translate_device
+
+    parser = AwesomeConfig.get_parser()
+    parser.add_argument("--config-path", type=str, default=None)
+    args = parser.parse_args(argv)
+    if args.config_path:
+        with open(args.config_path) as f:
+            text = f.read()
+        if "awesome." in text and "__class__" in text:
+            # an UNMODIFIED reference YAML: route through the importer
+            from awesome_tpu_torch.runner.reference_import import (
+                load_reference_config,
+            )
+
+            cfg, _ = load_reference_config(args.config_path)
+        else:
+            cfg = AwesomeConfig.load(args.config_path,
+                                     device=translate_device(args.device))
+    else:
+        cfg = AwesomeConfig()
+    cfg.apply_parsed_args(args)
+    cfg.prepare()
+    return cfg
+
+
+def _resolve_resume_folder(cfg) -> None:
+    """--resume true without an explicit --output-folder: continue the
+    NEWEST run of the same experiment (run folders are timestamped, so a
+    preempted job restarted with the identical command + --resume picks
+    up where it left off; ``AwesomeRunner._try_resume`` restores the full
+    train state bit-identically)."""
+    if not getattr(cfg, "resume", False) or cfg.output_folder:
+        return
+    name = cfg.name_experiment or "run"
+    # exact match on <timestamp>_<name_experiment>: a plain suffix glob
+    # would let experiment 'unet' resume into a newer 'refit_unet' folder
+    pat = re.compile(
+        r"^\d{4}-\d{2}-\d{2}_\d{2}-\d{2}-\d{2}_" + re.escape(name) + r"$")
+    cands = sorted(
+        os.path.join(cfg.runs_path, d)
+        for d in (os.listdir(cfg.runs_path)
+                  if os.path.isdir(cfg.runs_path) else [])
+        if pat.match(d)
+        and os.path.isdir(os.path.join(cfg.runs_path, d, "checkpoints")))
+    if cands:
+        cfg.output_folder = cands[-1]
+        logging.info("resume: picked up run folder %s", cands[-1])
+    else:
+        logging.info("resume: no prior run folder for %r, starting fresh",
+                     name)
+
+
+def _is_fbms(cfg) -> bool:
+    """FBMS configs = the dataset TYPE (outer, or the nested wrapped
+    dataset's class tag) is an FBMS sequence dataset, never a substring
+    match on arbitrary arg values (paths may contain 'fbms')."""
+    if "fbms" in (cfg.dataset_type or "").lower():
+        return True
+    inner = (cfg.dataset_args or {}).get("dataset")
+    cls = inner.get("__class__", "") if isinstance(inner, dict) else ""
+    return "fbms" in str(cls).lower()
+
+
+def main(cfg) -> str:
+    """Run the experiment of ``cfg``; returns the run folder."""
+    from awesome_tpu_torch.runner.runner import AwesomeRunner
+    from awesome_tpu_torch.utils.tensorboard import Tensorboard
+
+    _resolve_resume_folder(cfg)
+    if _is_fbms(cfg):
+        raise SystemExit(
+            "FBMS experiments need runner/fbms_runner.py, not ported yet "
+            "(ROADMAP.md Queue 1 item 7); run them with scripts/run.py")
+    runner = AwesomeRunner(cfg)
+    runner.build()
+    runner.store_config()
+    if cfg.do_pretraining:
+        logging.info("Pretraining (prior fit) ...")
+        runner.pretrain()
+        if cfg.pretrain_only:
+            out = runner.save_results()
+            logging.info("pretrain_only: results in %s", out)
+            return out
+    logging.info("Training %s (%d images, %d epochs)",
+                 cfg.run_name, len(runner.samples), cfg.num_epochs)
+    runner.train()
+    metrics = runner.evaluate()
+    logging.info("Eval: %s", metrics)
+    out = runner.save_results()
+    tb = Tensorboard(os.path.join(out, "tb"))
+    tb.attach_to_tracker(runner.tracker)
+    tb.log_config_markdown(cfg)
+    tb.close()
+    logging.info("Results in %s", out)
+    return out
+
+
+if __name__ == "__main__":
+    config_logging()
+    main(get_config())

@@ -83,13 +83,28 @@ Phases, each printing its own line (any failure exits nonzero):
     a falling epoch loss, ms per frame step and the idle share; and the
     zoo: ``apply_prefits(prefit_flow_identity=True, zoo=...)`` twice, the
     second call loading bitwise what the first fitted;
-14. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
+14. the runner path: ``AwesomeRunner`` as ``python -m
+    awesome_tpu_torch.run`` drives it (build, store_config, pretrain with
+    the 0.5 IoU gate and one retry, train with metrics and validation
+    every 100 epochs, evaluate, the dense refit ``sequential_prior_fit``,
+    save_results) at full width (seg ``Net()``, prior
+    ``FullyFusedConvexNextNet(ConvexNextNet(130, 1))``, Adam lr 0.02, the
+    extra penalty after epoch 200) on 8 synthetic images of the
+    convexity-51 shapes, cut to 300 epochs (the protocol has 3000), 500
+    pretrain and 500 refit steps (2000 each); K4 and K5 launch once each
+    per training epoch for all images (K4 once more per evaluation), the
+    loss falls before and with the extra penalty; ms per epoch, pretrain
+    ms/step, the idle share of a 20-epoch window, peak memory, gate IoUs
+    and metrics; a run to epoch 160 restarted with ``resume=True`` ends
+    bitwise where the uninterrupted run's training ended;
+15. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
     K1/K2) its time at its path's shape, its launches on that path, the
     steps, launches per step, its bound on this card, the plain version's
     time, and its error against the plain version at that shape; K2 also
     at the multi-object paths' shapes (G = 16 at 64x64, G = 8 at 480x640),
-    each printed as a ``kernel_vs_plain`` line too;
-15. the card's name and power limit, and last the result line
+    and K4/K5 at the runner's (G = 8, per-image points), each printed as a
+    ``kernel_vs_plain`` line too;
+16. the card's name and power limit, and last the result line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Phases 5-8 also profile a 20-step window of their fit with
@@ -1129,6 +1144,208 @@ def zoo_check(device) -> dict:
             "load_s": t2 - t1, "bitwise_equal": True}
 
 
+# The runner phase: the convexity-51 shapes of the repo's full protocol
+# (PARITY.md:371-376), and its cuts from the paper protocol
+RUNNER_SHAPES = ((160, 224), (160, 224), (192, 256), (192, 256),
+                 (224, 288), (224, 288), (240, 320), (240, 320))
+RUNNER_EPOCHS = 300  # the protocol has 3000
+RUNNER_PRETRAIN = 500  # the protocol has 2000
+RUNNER_REFIT = 500  # the protocol has 2000
+RUNNER_RESUME_AT = 160
+
+
+def runner_config(folder: str, device, **kw):
+    """The convexity benchmark's config at the default widths: seg
+    ``Net()`` (5 -> 130 -> 130 -> 1), the prior
+    ``FullyFusedConvexNextNet(ConvexNextNet(130, 1))``, Adam lr 0.02,
+    AwesomeLoss alpha 1 with the extra penalty after epoch 200, a 6/2
+    train/val split, metrics and validation every 100 epochs, pretrain
+    with the 0.5 IoU gate and one retry; synthetic images in memory."""
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.runner.config import AwesomeConfig
+
+    base = dict(
+        name_experiment="smoke_runner", device=device,
+        dataset_args={"shapes": [list(s) for s in RUNNER_SHAPES],
+                      "split_ratio": 0.75},
+        prior_model_type="awesome_tpu_torch.ops.mlp.FullyFusedConvexNextNet",
+        prior_model_args={"base": ConvexNextNet(n_hidden=130,
+                                                n_hidden_layers=1,
+                                                device=device)},
+        optimizer_type="adam", optimizer_args={"lr": 0.02},
+        loss_args={"alpha": 1.0}, use_extra_penalty_hook=True,
+        extra_penalty_after_n_epochs=200, num_epochs=RUNNER_EPOCHS,
+        compute_metrics_during_training_nth_epoch=100,
+        validation_each_nth_epoch=100,
+        pretrain_args={"num_epochs": RUNNER_PRETRAIN,
+                       "proper_prior_fit_retrys": 1},
+        runs_path=folder, output_folder=folder, seed=0)
+    base.update(kw)
+    return AwesomeConfig(**base)
+
+
+def _evals(runner) -> int:
+    s = runner.tracker.series.get(("MeanForegroundBinaryMIOU", "epoch",
+                                   "eval"))
+    return 0 if s is None else len(s.values)
+
+
+def runner_path(device, root: str) -> dict:
+    """The port's run entry point as ``python -m awesome_tpu_torch.run``
+    drives it (``AwesomeRunner``: build, store_config, pretrain, train,
+    evaluate, then the dense refit ``sequential_prior_fit`` and
+    ``save_results``) at full width on 8 synthetic images of the
+    convexity-51 shapes; the launch counts of K4/K5 on the path (one each
+    per training epoch for all images); a 20-epoch window timed and
+    profiled; then the resume check of ``tests/test_resume.py``: a second
+    run to ``RUNNER_RESUME_AT`` epochs restarted with ``resume=True`` must
+    end bitwise where the first run's training ended."""
+    import shutil
+
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.pixel_trainer import (
+        make_pixel_segment_fn,
+        pixel_train_init,
+    )
+    from awesome_tpu_torch.runner.runner import AwesomeRunner
+
+    epochs, resume_at = RUNNER_EPOCHS, RUNNER_RESUME_AT
+    shutil.rmtree(root, ignore_errors=True)
+    first = os.path.join(root, "run")
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    runner = AwesomeRunner(runner_config(first, device))
+    runner.build()
+    runner.store_config()
+    n_pad = int(runner._batch["px"].shape[1])
+    t0 = time.perf_counter()
+    pre = runner.pretrain()
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    _, _, k4_pre, k5_pre, _ = counts()
+    evals0 = _evals(runner)
+    t0 = time.perf_counter()
+    res = runner.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    _, _, k4_tr, k5_tr, _ = counts()
+    k4_tr, k5_tr = k4_tr - k4_pre, k5_tr - k5_pre
+    evals = _evals(runner) - evals0
+    if k5_tr != epochs or k4_tr != epochs + evals:
+        raise AssertionError(f"runner training: K4 {k4_tr}, K5 {k5_tr} "
+                             f"launches in {epochs} epochs and {evals} "
+                             "evaluations")
+    trained = T.tree_map(torch.clone, runner.stacked_params)
+    hist = res["loss_hist"]
+    train_idx = runner.train_indices
+    if not np.isfinite(hist).all():
+        raise AssertionError("non-finite loss in the runner's training")
+    # the extra penalty changes the loss function at its epoch (0.1 x the
+    # base loss + 100 x the prior's misalignment): it falls in each phase
+    curve = hist[train_idx].mean(axis=0)
+    switch = runner.config.extra_penalty_after_n_epochs
+    phases = [curve[:switch], curve[switch:]]
+    for part, name in zip(phases, ("before", "with")):
+        if len(part) > 1:
+            check_hist(part, f"the runner's training {name} the extra "
+                       "penalty")
+    t0 = time.perf_counter()
+    refit = runner.sequential_prior_fit(num_steps=RUNNER_REFIT)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    metrics = runner.evaluate()
+    out = runner.save_results()
+    _, _, k4_all, k5_all, _ = counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("config.yaml", "tracker.json", "params.npz",
+                 "treedef.txt"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"the run folder lacks {name}")
+
+    # a 20-epoch window of the training segment, from the trained state
+    tcfg = runner._train_cfg(PROF_STEPS)
+    segment = make_pixel_segment_fn(runner.wrapper, tcfg, PROF_STEPS)
+    state = pixel_train_init(runner.wrapper, trained, tcfg)
+    b = runner._dev_batch
+    batch = (b["px"], b["gt"], b["scr_mask"], b["rnd_mask"])
+
+    def window():
+        return segment(state, *batch)
+
+    window()
+    torch.cuda.synchronize()
+    _, _, w4, w5, _ = counts()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    ms_epoch = 1e3 * (time.perf_counter() - t0) / PROF_STEPS
+    _, _, w4b, w5b, _ = counts()
+    if (w4b - w4, w5b - w5) != (PROF_STEPS, PROF_STEPS):
+        raise AssertionError(f"{PROF_STEPS} epochs launched K4 {w4b - w4} "
+                             f"and K5 {w5b - w5} times")
+    profile = device_profile(window, PROF_STEPS, ms_epoch)
+
+    # preempted at resume_at, restarted with resume=True
+    second = os.path.join(root, "resumed")
+    state_path = pre["path"]
+    part = AwesomeRunner(runner_config(
+        second, device, num_epochs=resume_at,
+        pretrain_state_path=state_path))
+    part.build()
+    part.pretrain()
+    part.train()
+    resumed = AwesomeRunner(runner_config(
+        second, device, pretrain_state_path=state_path, resume=True))
+    resumed.build()
+    resumed.pretrain()
+    res2 = resumed.train()
+    diff = first_difference(trained, resumed.stacked_params)
+    tail = hist[:, resume_at:]
+    if diff is not None or not np.array_equal(res2["loss_hist"], tail):
+        raise AssertionError(f"the resumed run differs from the "
+                             f"uninterrupted one: {diff}")
+    torch.cuda.synchronize()
+    return {
+        "phase": "runner_path", "images": len(RUNNER_SHAPES),
+        "shapes": [list(s) for s in RUNNER_SHAPES], "padded_points": n_pad,
+        "cuts": {"epochs": [epochs, 3000], "pretrain_steps":
+                 [RUNNER_PRETRAIN, 2000], "refit_steps": [RUNNER_REFIT,
+                                                          2000]},
+        "train_images": list(train_idx), "val_images":
+            list(runner.val_indices),
+        "pretrain_s": pre_s, "pretrain_ms_per_step":
+            1e3 * pre_s / RUNNER_PRETRAIN,
+        "train_s": train_s, "train_ms_per_epoch_incl_evals":
+            1e3 * train_s / epochs,
+        "ms_per_epoch": ms_epoch, "refit_s": refit_s,
+        "launches": {
+            "pretrain": {"K4": k4_pre, "K5": k5_pre},
+            "train": {"K4": k4_tr, "K5": k5_tr, "epochs": epochs,
+                      "evaluations": evals},
+            "per_epoch": {"K4": (w4b - w4) / PROF_STEPS,
+                          "K5": (w5b - w5) / PROF_STEPS},
+            "refit_and_eval": {"K4": k4_all - k4_pre - k4_tr,
+                               "K5": k5_all - k5_pre - k5_tr}},
+        "gate_iou": [float(v) for v in pre["gate_iou"]],
+        "refit_gate_iou": [float(v) for v in refit["gate_iou"]],
+        "metrics_after_train": res["final_metrics"],
+        "metrics_after_refit": metrics,
+        "train_loss_first_last": {
+            name: [float(part[0]), float(part[-1])]
+            for part, name in zip(phases, ("base", "extra_penalty"))
+            if len(part)},
+        "peak_memory_gib": peak / 2 ** 30,
+        "resume": {"at": resume_at, "bitwise_equal": True,
+                   "loss_epochs_equal": int(tail.shape[1])},
+        "profile": profile, "k4": k4_tr, "k5": k5_tr,
+        "seconds": time.perf_counter() - t_all,
+    }
+
+
 # (what it serves, width, hidden layers, in_features) of the ICNNs the
 # fused ICNN kernels take
 ICNN_CONFIGS = (
@@ -1549,34 +1766,38 @@ def sequential_path(kind: str, device):
     }
 
 
-def icnn_bound_ms(spec, n: int, g: int, backward: bool) -> tuple:
+def icnn_bound_ms(spec, n: int, g: int, backward: bool,
+                  per_image: bool = False) -> tuple:
     """Least time the card needs for one K4 (or K5) call: the larger of
     the FP32 operations (one pass over every matrix for K4, three for K5:
     recompute, weight grads, data grads; 2 FLOP per MAC) at the FP32 peak,
-    and the bytes (points, upstream grads and params read once; outputs
-    written once) at the HBM rate."""
+    and the bytes (points, shared or one set per image, upstream grads and
+    params read once; outputs written once) at the HBM rate."""
     w, nl, c, p_len = spec.width, spec.n_layers, spec.in_features, \
         spec.row_len
     macs = c * w + nl * (w * w + c * w) + w + c
     flops = 2.0 * (3.0 if backward else 1.0) * macs * n * g
+    x_bytes = n * c * (g if per_image else 1)
     if backward:
-        nbytes = 4.0 * (n * c + g * n + 2 * g * p_len + g * n * c)
+        nbytes = 4.0 * (x_bytes + g * n + 2 * g * p_len + g * n * c)
     else:
-        nbytes = 4.0 * (n * c + g * p_len + g * n)
+        nbytes = 4.0 * (x_bytes + g * p_len + g * n)
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def icnn_entries(launches4, launches5, steps, reps, device) -> list:
-    """K4 and K5 at the convex main path's shape (480x640, width 130, one
-    hidden layer, G = 1): time, plain time, bound and error."""
+def icnn_entries(launches4, launches5, steps, reps, device, n=480 * 640,
+                 g=1, per_image=False, tag="", seed=13) -> list:
+    """K4 and K5 at one path's shape (width 130, one hidden layer; the
+    convex main path: N = 480x640, G = 1), on the inputs of ``seed``:
+    time, plain time, bound and error against the plain version. ``tag``
+    follows the kernel's letter in the entry's name."""
     from awesome_tpu_torch.ops import mlp
 
-    n = 480 * 640
-    ef, eb = icnn_vs_plain(130, 1, 2, n, 1, False, 13, device)
-    spec, _, stacked, flat, x, gy = icnn_inputs(130, 1, 2, n, 1, False, 13,
-                                                device)
+    ef, eb = icnn_vs_plain(130, 1, 2, n, g, per_image, seed, device)
+    spec, _, stacked, flat, x, gy = icnn_inputs(130, 1, 2, n, g, per_image,
+                                                seed, device)
     before = mlp.icnn_forward_cuda.launches, mlp.icnn_backward_cuda.launches
     ms4 = cuda_time_ms(lambda: mlp.icnn_forward_cuda(spec, flat, x), reps)
     ms5 = cuda_time_ms(lambda: mlp.icnn_backward_cuda(spec, flat, x, gy),
@@ -1585,20 +1806,21 @@ def icnn_entries(launches4, launches5, steps, reps, device) -> list:
     plain4 = cuda_time_ms(lambda: mlp.icnn_forward_plain(stacked, x), reps)
     plain5 = cuda_time_ms(
         lambda: mlp.icnn_backward_plain(stacked, x, gy[..., None]), reps)
+    points = "per_image" if per_image else "shared"
     out = []
     for name, line, launches, ms, plain, err, bwd in (
-            ("icnn_forward (K4)", 65, launches4, ms4, plain4, ef, False),
-            ("icnn_backward (K5)", 186, launches5, ms5, plain5, eb, True)):
-        b_ms, b_by = icnn_bound_ms(spec, n, 1, bwd)
+            ("icnn_forward (K4", 65, launches4, ms4, plain4, ef, False),
+            ("icnn_backward (K5", 186, launches5, ms5, plain5, eb, True)):
+        b_ms, b_by = icnn_bound_ms(spec, n, g, bwd, per_image)
         out.append({
-            "name": name, "route": "cuda",
+            "name": f"{name}{tag})", "route": "cuda",
             "source": "awesome_tpu_torch/ops/csrc/icnn.cu",
             "replaces": f"awesome_tpu/ops/pallas_mlp.py:{line}",
             "launches": launches, "steps": steps,
             "launches_per_step": launches / steps, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": {"n": n, "g": 1, "width": 130,
-                                          "layers": 1},
+            "library_ms": None, "shape": {"n": n, "g": g, "width": 130,
+                                          "layers": 1, "points": points},
         })
     return out
 
@@ -1693,6 +1915,8 @@ def main() -> int:
     print(json.dumps(mo_large), flush=True)
     print(json.dumps(spatiotemporal_path(dev)), flush=True)
     print(json.dumps(zoo_check(dev)), flush=True)
+    run = runner_path(dev, os.path.join("build", "smoke_runner"))
+    print(json.dumps(run), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
@@ -1712,6 +1936,18 @@ def main() -> int:
                      8, 9, bb_launches, bb_steps, 50, dev, use_bf16=True,
                      per_image=True),
     ] + icnn_entries(k4, k5, convex_steps, 50, dev)
+    runner_kernels = icnn_entries(
+        run["k4"], run["k5"], run["launches"]["train"]["epochs"], 50, dev,
+        n=run["padded_points"], g=len(RUNNER_SHAPES), per_image=True,
+        tag=f", G={len(RUNNER_SHAPES)}, runner, per-image points", seed=21)
+    for entry in runner_kernels:
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel":
+                          entry["name"], "path": "runner",
+                          "n": run["padded_points"],
+                          "g": len(RUNNER_SHAPES), "points": "per_image",
+                          "max_abs_err": entry["max_abs_err"],
+                          "bitwise_repeat": True}), flush=True)
+    kernels += runner_kernels
     for mo, (h, w), seed, reps in ((mo_small, (64, 64), 15, 50),
                                    (mo_large, (480, 640), 17, 10)):
         entry = kernel_entry(
