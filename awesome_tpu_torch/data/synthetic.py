@@ -6,11 +6,13 @@ The reference benchmark images must be downloaded (`scripts/setup.py`);
 where they are absent, tests and runs use procedurally generated scenes
 that exercise the exact same code paths: colored convex shapes
 (disks/ellipses) with occlusions, scribble masks, and ground truth with
-the fg=0 convention.
+the fg=0 convention. Video sequences are written in the FBMS-59 on-disk
+layout (:func:`write_synthetic_fbms_sequence`), file for file as the JAX
+package writes them.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -207,3 +209,118 @@ def synthetic_convexity_dataset(
                     flip_scale=flip_scale)
         for i in range(n)
     ]
+
+
+def write_fbms_layout(
+    root: str,
+    name: str,
+    n_frames: int,
+    trajs: List[Tuple[int, List[Tuple[float, float, int]]]],
+    frames: List[np.ndarray],
+    gt_masks: dict,
+) -> str:
+    """Serialize a synthetic sequence in the FBMS-59 on-disk layout: the
+    one format writer every synthetic-sequence generator delegates to, in
+    sync with the ``data/fbms.py`` parser. ``trajs`` is ``[(object_id,
+    [(x, y, frame), ...])]`` in the Ochs et al. multicut ``.dat`` format;
+    ``frames`` is a list of ``(H, W, 3)`` uint8 images; ``gt_masks`` maps
+    frame index -> ``(H, W)`` uint8 mask (255 = object). Layout spec:
+    `awesome/dataset/fbms_sequence_dataset.py`."""
+    import os
+
+    from PIL import Image
+
+    seq = os.path.join(str(root), name)
+    os.makedirs(os.path.join(seq, "GroundTruth"), exist_ok=True)
+    os.makedirs(os.path.join(seq, "tracks", "multicut"), exist_ok=True)
+    with open(os.path.join(seq, "tracks", "multicut", f"{name}.dat"),
+              "w") as f:
+        f.write(f"{n_frames}\n{len(trajs)}\n")
+        for oid, pts in trajs:
+            f.write(f"{oid} {len(pts)}\n")
+            for x, y, fr in pts:
+                f.write(f"{x:.2f} {y:.2f} {fr}\n")
+    for i, img in enumerate(frames):
+        Image.fromarray(np.asarray(img, np.uint8)).save(
+            os.path.join(seq, f"{name}_{i:02d}.png"))
+    labeled = sorted(gt_masks)
+    for i in labeled:
+        Image.fromarray(np.asarray(gt_masks[i], np.uint8)).save(
+            os.path.join(seq, "GroundTruth", f"gt_{i:02d}.png"))
+    with open(os.path.join(seq, "GroundTruth", f"{name}Def.dat"),
+              "w") as f:
+        f.write(
+            f"Sequence {name}\n\nTotal number of regions:\n2\n"
+            "Scale of region 0:\n100\nScale of region 1:\n50\n\n"
+            "Confusion penality matrix:\n0 1\n1 0\n\n"
+            f"Total number of frames in this shot:\n{n_frames}\n"
+            "Total number of labeled frames for this shot:\n"
+            f"{len(labeled)}\n"
+            + "".join(f"gt_{i:02d}.png\n{i}\n" for i in labeled)
+        )
+    return seq
+
+
+def write_synthetic_fbms_sequence(
+    root: str,
+    name: str = "syn99",
+    n_frames: int = 5,
+    h: int = 24,
+    w: int = 32,
+    seed: int = 0,
+) -> str:
+    """Write a synthetic moving-disk sequence in the FBMS-59 on-disk
+    layout (frames, ``tracks/multicut/<seq>.dat`` trajectories: 12 on the
+    disk as object 1 and 20 off it as background, and ``GroundTruth/``
+    masks of the first and last frame with a ``<Seq>Def.dat``
+    description), so the FBMS pipeline runs end to end without the
+    FBMS-59 files. Geometry only; serialization is
+    :func:`write_fbms_layout`."""
+    rng = np.random.default_rng(seed)
+
+    def _center(f: int) -> Tuple[float, float]:
+        return 0.5 * h, 0.22 * w + (0.5 * w / max(n_frames - 1, 1)) * f
+
+    r = 0.22 * min(h, w)
+    trajs = []
+    for oid, n_traj in ((1, 12), (0, 20)):
+        for _ in range(n_traj):
+            pts = []
+            if oid == 1:
+                ang = rng.uniform(0, 2 * np.pi)
+                rad = rng.uniform(0, 0.8 * r)
+                for f in range(n_frames):
+                    cy, cx = _center(f)
+                    pts.append((cx + rad * np.cos(ang),
+                                cy + rad * np.sin(ang), f))
+            else:
+                # background points kept off the disk in every frame
+                while True:
+                    x0 = rng.uniform(0, w - 1)
+                    y0 = rng.uniform(0, h - 1)
+                    if all(
+                        (y0 - _center(f)[0]) ** 2
+                        + (x0 - _center(f)[1]) ** 2 > (r + 2) ** 2
+                        for f in range(n_frames)
+                    ):
+                        break
+                for f in range(n_frames):
+                    pts.append((x0, y0, f))
+            trajs.append((oid, pts))
+
+    yy, xx = np.mgrid[0:h, 0:w]
+
+    def _disk(i: int) -> np.ndarray:
+        cy, cx = _center(i)
+        return (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+
+    frames = []
+    for i in range(n_frames):
+        img = np.zeros((h, w, 3), np.uint8) + 30
+        img[_disk(i)] = 200
+        frames.append(img)
+    gt_masks = {
+        i: np.where(_disk(i), 255, 0).astype(np.uint8)
+        for i in (0, n_frames - 1)
+    }
+    return write_fbms_layout(root, name, n_frames, trajs, frames, gt_masks)

@@ -1,14 +1,17 @@
-"""Run a single convexity experiment from a config; counterpart of
+"""Run a single experiment from a config; counterpart of
 ``scripts/run.py``.
 
     python -m awesome_tpu_torch.run [--config-path my_experiment.yaml] \\
         [--num-epochs 100 ...any config field as a flag...]
 
-It builds the data (the on-disk convexity dataset, or the synthetic
-replica), pretrains the per-image priors, trains seg net and prior jointly
-per image, evaluates, checkpoints and writes a run folder. It runs on the
-card; ``--device cpu`` runs it on the CPU. A config file may be one this
-package or the JAX package wrote, or an unmodified reference YAML.
+A convexity config builds the data (the on-disk convexity dataset, or the
+synthetic replica), pretrains the per-image priors, trains seg net and
+prior jointly per image, evaluates, checkpoints and writes a run folder.
+An FBMS config (its dataset type, or the nested dataset's class, is an
+FBMS sequence dataset) runs one of the FBMS experiment families through
+``runner/fbms_runner.py`` (:func:`main_fbms`). It runs on the card;
+``--device cpu`` runs it on the CPU. A config file may be one this package
+or the JAX package wrote, or an unmodified reference YAML.
 """
 from __future__ import annotations
 
@@ -88,16 +91,80 @@ def _is_fbms(cfg) -> bool:
     return "fbms" in str(cls).lower()
 
 
-def main(cfg) -> str:
+def _joint_state_kind(cfg) -> str:
+    """The checkpoint kind this config's joint dispatch produces and
+    consumes; delegates to the single source of truth beside the dispatch
+    itself (``FBMSRunner.joint_state_kind``)."""
+    from awesome_tpu_torch.runner.fbms_runner import FBMSRunner
+
+    return FBMSRunner.joint_state_kind(cfg)
+
+
+def _skip_pretrain_on_resume(cfg) -> bool:
+    """A resumable joint checkpoint supersedes the prior pretrain (the
+    restored train state carries the priors): don't redo the prefit on
+    every preemption restart. Never skips a pretrain_only run (its
+    deliverable is the pretrain); only a checkpoint of the kind THIS config
+    dispatches to counts."""
+    from awesome_tpu_torch.fit.checkpoint import find_resumable
+
+    if not getattr(cfg, "resume", False) or cfg.pretrain_only:
+        return False
+    if not cfg.output_folder:
+        return False
+    ck = os.path.join(cfg.output_folder, "checkpoints")
+    return bool(find_resumable(ck, _joint_state_kind(cfg)))
+
+
+def main_fbms(cfg) -> Optional[str]:
+    """FBMS experiment families route through ``FBMSRunner``:
+    spatio-temporal (one shared (x, y, t) prior, plain or noisy),
+    pretrain_only (sequential / weight-decay) and joint (UNET+...+joint,
+    refit-unet, multi-object). Returns the run folder of a joint run
+    (its checkpoints), else None."""
+    from awesome_tpu_torch.runner.fbms_runner import FBMSRunner
+
+    runner = FBMSRunner.from_awesome_config(cfg)
+    if not os.path.isdir(runner.config.dataset_path):
+        raise SystemExit(
+            f"FBMS sequence directory {runner.config.dataset_path!r} not "
+            "found: point dataset_args.dataset.dataset_path at a sequence "
+            "directory in the FBMS-59 layout")
+    runner.build()
+    if (cfg.dataset_args or {}).get("spatio_temporal") or (
+            cfg.prior_model_args or {}).get("channels") == 3:
+        res = runner.pretrain()
+        logging.info("Spatio-temporal fit done: %s", res)
+        logging.info("Eval: %s", runner.evaluate())
+        return None
+    if cfg.do_pretraining:
+        if _skip_pretrain_on_resume(cfg):
+            logging.info("resume: joint checkpoint found, skipping the "
+                         "prior pretrain")
+        else:
+            res = runner.run_pretrain_only_from_config()
+            logging.info("Prior pretrain: %s", res)
+        if cfg.pretrain_only:
+            return None
+    res = runner.train_joint_from_config()
+    logging.info("Joint training done (%d losses)", len(res["loss"]))
+    if runner.joint_state_kind(cfg) == "multi":
+        logging.info("Eval: %s", runner.evaluate_multi_object())
+    else:
+        logging.info("Eval: %s", runner.evaluate_joint())
+    out = cfg.output_folder or os.path.join(cfg.runs_path, cfg.run_name)
+    logging.info("Results in %s", out)
+    return out
+
+
+def main(cfg) -> Optional[str]:
     """Run the experiment of ``cfg``; returns the run folder."""
     from awesome_tpu_torch.runner.runner import AwesomeRunner
     from awesome_tpu_torch.utils.tensorboard import Tensorboard
 
     _resolve_resume_folder(cfg)
     if _is_fbms(cfg):
-        raise SystemExit(
-            "FBMS experiments need runner/fbms_runner.py, not ported yet "
-            "(ROADMAP.md Queue 1 item 7); run them with scripts/run.py")
+        return main_fbms(cfg)
     runner = AwesomeRunner(cfg)
     runner.build()
     runner.store_config()

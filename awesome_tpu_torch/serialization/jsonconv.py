@@ -41,9 +41,12 @@ PORT_MODULES = {
     "awesome_tpu.core.tree": "awesome_tpu_torch.core.tree",
     "awesome_tpu.data.batching": "awesome_tpu_torch.data.batching",
     "awesome_tpu.data.convexity": "awesome_tpu_torch.data.convexity",
+    "awesome_tpu.data.fbms": "awesome_tpu_torch.data.fbms",
     "awesome_tpu.data.image_sample": "awesome_tpu_torch.data.image_sample",
     "awesome_tpu.data.split": "awesome_tpu_torch.data.split",
     "awesome_tpu.data.synthetic": "awesome_tpu_torch.data.synthetic",
+    "awesome_tpu.data.weak_label_processing":
+        "awesome_tpu_torch.data.weak_label_processing",
     "awesome_tpu.fit.checkpoint": "awesome_tpu_torch.fit.checkpoint",
     "awesome_tpu.fit.fused_fit": "awesome_tpu_torch.fit.fused_fit",
     "awesome_tpu.fit.optim": "awesome_tpu_torch.fit.optim",
@@ -66,6 +69,8 @@ PORT_MODULES = {
     "awesome_tpu.nn.linear": "awesome_tpu_torch.nn.linear",
     "awesome_tpu.nn.module": "awesome_tpu_torch.nn.module",
     "awesome_tpu.nn.multi_prior": "awesome_tpu_torch.nn.multi_prior",
+    "awesome_tpu.nn.noisy_path_connected":
+        "awesome_tpu_torch.nn.noisy_path_connected",
     "awesome_tpu.nn.path_connected": "awesome_tpu_torch.nn.path_connected",
     "awesome_tpu.nn.seg": "awesome_tpu_torch.nn.seg",
     "awesome_tpu.nn.wrapper": "awesome_tpu_torch.nn.wrapper",
@@ -73,6 +78,7 @@ PORT_MODULES = {
     "awesome_tpu.ops.pallas_flagship": "awesome_tpu_torch.ops.flagship",
     "awesome_tpu.ops.pallas_mlp": "awesome_tpu_torch.ops.mlp",
     "awesome_tpu.runner.config": "awesome_tpu_torch.runner.config",
+    "awesome_tpu.runner.fbms_runner": "awesome_tpu_torch.runner.fbms_runner",
     "awesome_tpu.runner.functions": "awesome_tpu_torch.runner.functions",
     "awesome_tpu.runner.handles": "awesome_tpu_torch.runner.handles",
     "awesome_tpu.runner.reference_import":

@@ -97,14 +97,30 @@ Phases, each printing its own line (any failure exits nonzero):
     ms/step, the idle share of a 20-epoch window, peak memory, gate IoUs
     and metrics; a run to epoch 160 restarted with ``resume=True`` ends
     bitwise where the uninterrupted run's training ended;
-15. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
+15. the FBMS path (``fbms_path``): ``runner/fbms_runner.py`` on a
+    synthetic 4-frame sequence at 480x640 (FBMS-59's cars frames) in the
+    FBMS-59 layout: ``pretrain_joint_priors`` with the bench prior, a cold
+    fit of 500 steps and warm fits of 200 with the flow-identity prefit in
+    a zoo, K1 launched once per step (1100), and again from the zoo,
+    bitwise equal; ``train_joint`` of the full-width UNet(4, 1), 3 epochs
+    in batches of 2 with an evaluation and a checkpoint each epoch
+    (finite losses that fall, evaluations in [0, 1]), a run stopped after
+    epoch 1 and resumed to epoch 3 bitwise equal to it, ``evaluate_joint``
+    on both GT frames, one step's ms, peak memory and idle share; the
+    spatio-temporal fit and its evaluation, plain and in the noisy family
+    with its prefits; ``train_joint_from_config`` on a multi-object config
+    (8 frames of 64x64, 2 slots, 3 epochs); ``python -m
+    awesome_tpu_torch.run`` in a subprocess on an FBMS config (4 frames of
+    64x64), which must exit 0 and leave its run folder's checkpoints;
+16. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
     K1/K2) its time at its path's shape, its launches on that path, the
     steps, launches per step, its bound on this card, the plain version's
     time, and its error against the plain version at that shape; K2 also
     at the multi-object paths' shapes (G = 16 at 64x64, G = 8 at 480x640),
-    and K4/K5 at the runner's (G = 8, per-image points), each printed as a
-    ``kernel_vs_plain`` line too;
-16. the card's name and power limit, and last the result line
+    K4/K5 at the runner's (G = 8, per-image points), and K1 at the FBMS
+    pretrain's (480x640, G = 1), each printed as a ``kernel_vs_plain``
+    line too;
+17. the card's name and power limit, and last the result line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Phases 5-8 also profile a 20-step window of their fit with
@@ -1346,6 +1362,304 @@ def runner_path(device, root: str) -> dict:
     }
 
 
+# The FBMS phase: a synthetic sequence at the frame size of FBMS-59's cars
+# sequences (cars3 among them), the per-frame pretrain's step counts of
+# the joint configs' reuse-state protocol, cut from 4000/400 to 500/200
+FBMS_SHAPE = (480, 640)
+FBMS_FRAMES = 4
+FBMS_COLD, FBMS_WARM = 500, 200
+FBMS_EPOCHS = 3
+FBMS_RESUME_AT = 1
+
+
+def _keep_cold_history():
+    """Wrap ``prior_fit.fit_priors_sequential`` so the cold fit's loss
+    history of the next pretrain is kept; returns (restore, kept)."""
+    from awesome_tpu_torch.fit import prior_fit
+
+    real = prior_fit.fit_priors_sequential
+    kept = {}
+
+    def keep(*args, **kwargs):
+        out = real(*args, **kwargs)
+        kept["hist"] = out[1]["first_aux"]["loss_hist"].cpu().numpy()
+        return out
+
+    prior_fit.fit_priors_sequential = keep
+
+    def restore():
+        prior_fit.fit_priors_sequential = real
+
+    return restore, kept
+
+
+def _in_unit(metrics: dict, what: str) -> None:
+    for k, v in metrics.items():
+        if k != "num_gt_frames" and not 0.0 <= v <= 1.0:
+            raise AssertionError(f"{what}: {k} = {v} is outside [0, 1]")
+
+
+def fbms_path(device, root: str) -> dict:
+    """The FBMS experiments through ``runner/fbms_runner.py`` as ``python
+    -m awesome_tpu_torch.run`` drives them, on a synthetic 4-frame 480x640
+    sequence in the FBMS-59 layout (``write_synthetic_fbms_sequence``):
+    (1) ``pretrain_joint_priors`` with the flow-identity prefit cached in
+    a zoo, ``FBMSExperimentConfig()``'s bench prior (flow 32 x 12, ICNN
+    130 x 2), a cold fit of 500 steps and warm fits of 200: K1 launched
+    once per step, 1100 times; the same again from the zoo, bitwise equal;
+    (2) ``train_joint`` of the full-width ``UNet(4, 1)`` with those priors,
+    3 epochs in batches of 2, an evaluation and a checkpoint every epoch:
+    finite losses, the last epoch's mean below the first's, evaluations in
+    [0, 1]; a run stopped after epoch 1 and resumed to epoch 3 equals it
+    bitwise in every leaf and in its losses; ``evaluate_joint`` finds both
+    GT frames; one joint step's ms, peak memory and the device's idle
+    share; (3) the spatio-temporal ``pretrain`` + ``evaluate``, plain and
+    in the noisy family (half the frames' unaries noise, the flow-identity
+    and convex prefits); (4) ``train_joint_from_config`` on a
+    ``multiple_objects`` config: 8 frames of 64x64, 2 slots, 3 epochs, a
+    100-step children pretrain; (5) ``python -m awesome_tpu_torch.run`` in
+    a subprocess on an FBMS config of a 4-frame 64x64 sequence: exit 0,
+    its run folder and checkpoints."""
+    import shutil
+
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.data.synthetic import (
+        write_synthetic_fbms_sequence,
+    )
+    from awesome_tpu_torch.fit.checkpoint import find_resumable
+    from awesome_tpu_torch.fit.trainer import (
+        JointTrainConfig,
+        make_joint_train_step,
+    )
+    from awesome_tpu_torch.nn.zoo import Zoo
+    from awesome_tpu_torch.runner.config import AwesomeConfig
+    from awesome_tpu_torch.runner.fbms_runner import (
+        FBMSExperimentConfig,
+        FBMSRunner,
+    )
+
+    shutil.rmtree(root, ignore_errors=True)
+    t_all = time.perf_counter()
+    h, w = FBMS_SHAPE
+    seq = write_synthetic_fbms_sequence(root, name="cars99",
+                                        n_frames=FBMS_FRAMES, h=h, w=w,
+                                        seed=0)
+    out = {"phase": "fbms_path", "shape": [h, w], "frames": FBMS_FRAMES}
+
+    def runner():
+        return FBMSRunner(FBMSExperimentConfig(dataset_path=seq),
+                          device=device).build()
+
+    # (1) the per-frame pretrain on K1
+    zoo = Zoo(os.path.join(root, "zoo"))
+    pre_kw = dict(num_steps=FBMS_COLD, reuse_state_steps=FBMS_WARM,
+                  prefit_flow_identity=True, zoo=zoo)
+    want = FBMS_COLD + (FBMS_FRAMES - 1) * FBMS_WARM
+    first = runner()
+    restore, kept = _keep_cold_history()
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        pre = first.pretrain_joint_priors(**pre_kw)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        k1, _, _, _, ran = counts()
+        if not k1 == ran == want:
+            raise AssertionError(f"FBMS pretrain: K1 launched {k1} times in "
+                                 f"{ran} fit steps, want {want}")
+        cold = kept["hist"]
+        check_hist(cold, "the FBMS pretrain's cold fit")
+        again = runner()
+        t0 = time.perf_counter()
+        again.pretrain_joint_priors(**pre_kw)  # the flow from the zoo
+        torch.cuda.synchronize()
+        zoo_s = time.perf_counter() - t0
+    finally:
+        restore()
+    diff = first_difference(first.joint_prior_init, again.joint_prior_init)
+    if diff is not None:
+        raise AssertionError(f"the FBMS pretrain from the zoo differs at "
+                             f"{diff}")
+    out["pretrain"] = {
+        "cold_steps": FBMS_COLD, "warm_steps": FBMS_WARM,
+        "k1_launches": k1, "fit_steps": ran, "seconds": pre_s,
+        "seconds_flow_from_zoo": zoo_s,
+        "ms_per_step_flow_from_zoo": 1e3 * zoo_s / want,
+        "cold_loss_first_last": [float(cold[0]), float(cold[-1])],
+        "cold_loss": pre["cold_loss"], "zoo_rerun_bitwise_equal": True}
+
+    # (2) joint training from those priors, and its resume
+    ck = os.path.join(root, "joint", "checkpoints")
+    train_kw = dict(num_epochs=FBMS_EPOCHS, batch_size=2, eval_nth_epoch=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = first.train_joint(checkpoint_dir=ck, **train_kw)
+    torch.cuda.synchronize()
+    joint_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = np.asarray(res["loss"])
+    per_epoch = len(loss) // FBMS_EPOCHS
+    epochs = loss.reshape(FBMS_EPOCHS, per_epoch).mean(axis=1)
+    if not np.isfinite(loss).all() or not epochs[-1] < epochs[0]:
+        raise AssertionError(f"FBMS joint losses: {loss.tolist()}")
+    series = first.joint_tracker.series
+    evals = {name: [float(v) for v in series[(name, "epoch", "eval")].values]
+             for name in ("MeanForegroundBinaryMIOU",
+                          "PriorMeanForegroundBinaryMIOU")}
+    for name, vals in evals.items():
+        if len(vals) != FBMS_EPOCHS or not all(0 <= v <= 1 for v in vals):
+            raise AssertionError(f"FBMS joint evaluations {name}: {vals}")
+    final = first.evaluate_joint()
+    _in_unit(final, "evaluate_joint")
+    if final["num_gt_frames"] != 2:
+        raise AssertionError(f"evaluate_joint found "
+                             f"{final['num_gt_frames']} GT frames, want 2")
+    found = find_resumable(ck, "joint")
+    if found is None or found[0] != FBMS_EPOCHS:
+        raise AssertionError(f"no resumable checkpoint of epoch "
+                             f"{FBMS_EPOCHS} under {ck}: {found}")
+    ck2 = os.path.join(root, "resumed", "checkpoints")
+    part = runner()
+    part.joint_prior_init = first.joint_prior_init
+    part.train_joint(checkpoint_dir=ck2, **dict(train_kw,
+                                                num_epochs=FBMS_RESUME_AT))
+    resumed = runner()
+    resumed.joint_prior_init = first.joint_prior_init
+    res2 = resumed.train_joint(checkpoint_dir=ck2, resume=True, **train_kw)
+    diff = first_difference(first.joint_state, resumed.joint_state)
+    tail = res["loss"][FBMS_RESUME_AT * per_epoch:]
+    if diff is not None or res2["loss"] != tail:
+        raise AssertionError(f"the resumed FBMS joint run differs from the "
+                             f"uninterrupted one: {diff}")
+    # one joint step at 480x640 on frames 0 and 1: ms and idle share
+    imgs, fts = first._frames_and_features([0, 1])
+    batch = {"image": first._tensor(imgs), "features": first._tensor(fts),
+             "grid": first._grid(), "target": first._tensor(
+                 first._joint_frame_targets()[:2]),
+             "index": torch.arange(2, device=device)}
+    step = make_joint_train_step(first.joint_wrapper, JointTrainConfig())
+    state = first.joint_state
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 3
+    out["joint"] = {
+        "epochs": FBMS_EPOCHS, "batch": 2, "steps": len(loss),
+        "loss": loss.tolist(), "epoch_loss": epochs.tolist(),
+        "evaluations": evals, "evaluate_joint": final,
+        "seconds_incl_evals_and_checkpoints": joint_s,
+        "ms_per_step": ms, "peak_memory_gib": peak,
+        "profile": device_profile(lambda: step(state, batch), 1, ms),
+        "resume": {"from_epoch": FBMS_RESUME_AT, "leaves_bitwise_equal":
+                   len(T.tree_flatten_with_path(first.joint_state)),
+                   "losses_equal": len(tail)}}
+
+    # (3) spatio-temporal, plain and noisy with the prefits
+    st = {}
+    for name, pa in (
+            ("plain", {}),
+            ("noisy", {"noisy_percentage": 0.5,
+                       "prefit_flow_net_identity": True,
+                       "prefit_flow_net_identity_num_epochs": 20,
+                       "prefit_convex_net": True,
+                       "prefit_convex_net_num_epochs": 20})):
+        cfg = AwesomeConfig(
+            device=device, seed=0, num_epochs=2, pretrain_args=pa,
+            optimizer_args={"lr": 1e-3},
+            dataset_args={"dataset": {"dataset_path": seq}},
+            prior_model_args={"channels": 3})
+        st_runner = FBMSRunner.from_awesome_config(cfg).build()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = st_runner.pretrain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ev = st_runner.evaluate()
+        if not np.isfinite(fit["epoch_loss"]).all():
+            raise AssertionError(f"spatio-temporal ({name}) loss: "
+                                 f"{fit['epoch_loss']}")
+        _in_unit(ev, f"spatio-temporal ({name}) evaluate")
+        if ev["num_gt_frames"] != 2:
+            raise AssertionError(f"spatio-temporal ({name}) evaluate found "
+                                 f"{ev['num_gt_frames']} GT frames")
+        st[name] = {"epoch_loss": fit["epoch_loss"].tolist(),
+                    "seconds_incl_prefits": dt, "evaluate": ev,
+                    "noisy_frames": st_runner.config.frame_noise_percentage}
+    out["spatiotemporal"] = st
+
+    # (4) multi-object from its config
+    seq8 = write_synthetic_fbms_sequence(root, name="multi99", n_frames=8,
+                                         h=64, w=64, seed=1)
+    mcfg = AwesomeConfig(
+        device=device, seed=0, num_epochs=3,
+        dataset_args={"dataset": {"dataset_path": seq8,
+                                  "label_mode": "multiple_objects",
+                                  "max_objects": 2,
+                                  "training_batch_size": 2}},
+        pretrain_args={"num_epochs": 100},
+        compute_metrics_during_training_nth_epoch=1,
+        output_folder=os.path.join(root, "multi"))
+    mrunner = FBMSRunner.from_awesome_config(mcfg).build()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mres = mrunner.train_joint_from_config()
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    mloss = np.asarray(mres["loss"])
+    mev = mrunner.evaluate_multi_object()
+    if not np.isfinite(mloss).all() or len(mloss) != 3 * 4:
+        raise AssertionError(f"FBMS multi-object losses: {mloss.tolist()}")
+    for per in mev.values():
+        _in_unit(per, "evaluate_multi_object")
+    if find_resumable(os.path.join(root, "multi", "checkpoints"),
+                      "multi") is None:
+        raise AssertionError("the multi-object run left no checkpoint")
+    out["multi_object"] = {
+        "shape": [64, 64], "frames": 8, "slots": 2, "epochs": 3,
+        "pretrain_steps": 100, "loss": mloss.tolist(),
+        "seconds_incl_pretrain_and_evals": multi_s,
+        "evaluate_multi_object": {k: {str(o): v for o, v in d.items()}
+                                  for k, d in mev.items()}}
+
+    # (5) the CLI in a subprocess
+    seq_cli = write_synthetic_fbms_sequence(root, name="cli99", n_frames=4,
+                                            h=64, w=64, seed=2)
+    runs = os.path.join(root, "runs")
+    args = [sys.executable, "-m", "awesome_tpu_torch.run",
+            "--name-experiment", "fbms_cli", "--runs-path", runs,
+            "--dataset-type", "awesome_tpu.data.fbms.FBMSSequenceDataset",
+            "--dataset-args",
+            f"{{dataset: {{dataset_path: {seq_cli}, "
+            "training_batch_size: 2}}",
+            "--num-epochs", "2",
+            "--compute-metrics-during-training-nth-epoch", "1",
+            "--pretrain-args", "{num_epochs: 100, reuse_state_epochs: 40}"]
+    t0 = time.perf_counter()
+    cli = subprocess.run(args, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise AssertionError(f"python -m awesome_tpu_torch.run exited "
+                             f"{cli.returncode}:\n{cli.stderr[-3000:]}")
+    folders = [d for d in os.listdir(runs) if d.endswith("_fbms_cli")]
+    if len(folders) != 1 or find_resumable(
+            os.path.join(runs, folders[0], "checkpoints"), "joint") is None:
+        raise AssertionError(f"the CLI's run folder lacks its checkpoints: "
+                             f"{folders}")
+    out["cli"] = {"returncode": 0, "seconds": cli_s,
+                  "run_folder": os.path.join(runs, folders[0]),
+                  "checkpoints": sorted(os.listdir(
+                      os.path.join(runs, folders[0], "checkpoints")))}
+    out["k1"] = k1
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 # (what it serves, width, hidden layers, in_features) of the ICNNs the
 # fused ICNN kernels take
 ICNN_CONFIGS = (
@@ -1917,6 +2231,8 @@ def main() -> int:
     print(json.dumps(zoo_check(dev)), flush=True)
     run = runner_path(dev, os.path.join("build", "smoke_runner"))
     print(json.dumps(run), flush=True)
+    fbms = fbms_path(dev, os.path.join("build", "smoke_fbms"))
+    print(json.dumps(fbms), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
@@ -1961,6 +2277,16 @@ def main() -> int:
                           "max_abs_err": entry["max_abs_err"],
                           "bitwise_repeat": True}), flush=True)
         kernels.append(entry)
+    h, w = FBMS_SHAPE
+    entry = kernel_entry(
+        "flagship_loss_grad (K1, G=1, FBMS per-frame pretrain)", replaces,
+        bench_model(FBMS_SHAPE, dev), h * w, 1, 19, fbms["k1"],
+        fbms["pretrain"]["fit_steps"], 20, dev)
+    print(json.dumps({"phase": "kernel_vs_plain", "model": "bench",
+                      "path": "fbms", "n": h * w, "g": 1,
+                      "max_abs_err": entry["max_abs_err"],
+                      "bitwise_repeat": True}), flush=True)
+    kernels.append(entry)
     print("library: no single PyTorch call computes the fused flagship loss "
           "and gradient, a fused ICNN forward, or its weight grads; "
           "library_ms is null")

@@ -280,12 +280,15 @@ def test_options_left_out_raise(tmp_path, option, item):
 
 
 def test_fbms_config_exits_naming_the_item(tmp_path):
+    """An FBMS config routes to ``run.main_fbms``; without its sequence
+    directory it exits naming the directory it looked for."""
     from awesome_tpu_torch import run
 
     cfg = _port_config(
-        tmp_path, dataset_type="awesome_tpu.data.fbms.FBMSSequenceDataset")
+        tmp_path, dataset_type="awesome_tpu.data.fbms.FBMSSequenceDataset",
+        dataset_args={"dataset": {"dataset_path": str(tmp_path / "none")}})
     cfg.prepare()
-    with pytest.raises(SystemExit, match="item 7"):
+    with pytest.raises(SystemExit, match="FBMS sequence directory .*none"):
         run.main(cfg)
 
 
