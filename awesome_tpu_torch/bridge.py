@@ -2,11 +2,13 @@
 
 The trees have the same structure (dicts and lists, the same keys). Two
 layouts differ: a JAX ``Linear`` weight ``w`` is ``(in, out)`` and the
-port's is torch's ``(out, in)``; a JAX conv weight ``w`` is HWIO ``(kh,
-kw, in, out)`` and the port's is torch's ``(out, in, kh, kw)``. Every
-weight leaf named ``w`` with a matrix or a 4-D shape is converted; 1-D
-``w`` leaves (``PerChannelAffine``) are not. Float leaves become float32;
-integer leaves (the batch-norm ``count``) keep their type.
+port's is torch's ``(out, in)`` (so is a weight-normalized layer's
+``v``); a JAX conv weight ``w`` is HWIO ``(kh, kw, in, out)`` and the
+port's is torch's ``(out, in, kh, kw)``. Every weight leaf named ``w``
+(or ``v``) with a matrix shape, and every ``w`` with a 4-D shape, is
+converted; 1-D ``w`` leaves (``PerChannelAffine``) are not. A ``mask`` leaf (the JAX ``GlowFlow``/``SplineFlow`` coupling
+masks, which the port keeps as buffers) is dropped. Float leaves become
+float32; integer leaves (the batch-norm ``count``) keep their type.
 ``stacked=True`` means every leaf carries a leading image axis; an int
 ``stacked`` counts leading axes (2 for an (image, object) tree).
 
@@ -27,15 +29,19 @@ Params = Any
 
 def _walk(tree, leaf_fn, key=None):
     if isinstance(tree, dict):
-        return {k: _walk(v, leaf_fn, k) for k, v in tree.items()}
+        return {k: _walk(v, leaf_fn, k) for k, v in tree.items()
+                if k != "mask"}
     if isinstance(tree, (list, tuple)):
         return [_walk(v, leaf_fn, key) for v in tree]
     return leaf_fn(key, tree)
 
 
+_MATRIX_KEYS = ("w", "v")
+
+
 def _to_port(key, a: np.ndarray, stacked: int) -> np.ndarray:
     lead = int(stacked)
-    if key == "w" and a.ndim == 2 + lead:  # (in, out) -> (out, in)
+    if key in _MATRIX_KEYS and a.ndim == 2 + lead:  # (in, out) -> (out, in)
         return np.swapaxes(a, -1, -2)
     if key == "w" and a.ndim == 4 + lead:  # HWIO -> (out, in, kh, kw)
         return np.moveaxis(a, (lead + 3, lead + 2), (lead, lead + 1))
@@ -44,7 +50,7 @@ def _to_port(key, a: np.ndarray, stacked: int) -> np.ndarray:
 
 def _to_jax(key, a: np.ndarray, stacked: int) -> np.ndarray:
     lead = int(stacked)
-    if key == "w" and a.ndim == 2 + lead:
+    if key in _MATRIX_KEYS and a.ndim == 2 + lead:
         return np.swapaxes(a, -1, -2)
     if key == "w" and a.ndim == 4 + lead:
         return np.moveaxis(a, (lead, lead + 1), (lead + 3, lead + 2))

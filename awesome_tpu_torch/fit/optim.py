@@ -10,6 +10,7 @@ leaves whose leading axis is the image axis.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -142,3 +143,18 @@ def wn_param_groups(params: Params, weight_decay: float) -> Params:
         return 0.0
 
     return walk(params)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepLR:
+    """torch's StepLR as a pure function of the epoch index: the LR scale
+    ``gamma ** (epoch // step_size)`` (float32, on ``epoch``'s device when
+    it is a tensor)."""
+
+    step_size: int
+    gamma: float = 0.1
+
+    def scale(self, epoch) -> torch.Tensor:
+        e = torch.as_tensor(epoch)
+        return self.gamma ** torch.div(
+            e, self.step_size, rounding_mode="floor").to(torch.float32)

@@ -2,8 +2,9 @@
 ``awesome_tpu/nn/linear.py``.
 
 Weight layout is torch's ``(out_features, in_features)``: the forward is
-``x @ w.T + b``. (The JAX package stores ``(in, out)``;
-``awesome_tpu_torch.bridge`` converts.)"""
+``x @ w.T + b``; a weight-normalized layer's direction ``v`` has the same
+layout. (The JAX package stores ``(in, out)``; ``awesome_tpu_torch.bridge``
+converts.)"""
 from __future__ import annotations
 
 from typing import Optional
@@ -90,3 +91,57 @@ class PerChannelAffine(Module):
 
     def inverse(self, params, y):
         return (y - params["b"]) / params["w"]
+
+
+def wn_weight(params) -> torch.Tensor:
+    """Effective weight of a :class:`WNLinear` param dict:
+    ``g * v / ||v||_F``."""
+    v = params["v"]
+    norm = torch.sqrt(torch.sum(v * v))
+    return params["g"] * v / torch.clamp_min(norm, 1e-12)
+
+
+class WNLinear(Module):
+    """Weight-normalized linear with a scalar (0-d) norm ``g``, as torch's
+    ``weight_norm(dim=None)``: ``w = g * v / ||v||_F``. 'torch_default'
+    draws ``v`` and ``b`` as ``nn.Linear`` does and sets ``g = ||v||_F``;
+    'uniform'/'normal' draw kaiming ``v`` with ``g = 1``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 init_mode: str = "torch_default",
+                 init_activation: str = "relu", device: DeviceLike = None):
+        super().__init__(device)
+        self.in_features = in_features
+        self.out_features = out_features
+        self.bias = bias
+        self.init_mode = init_mode
+        self.init_activation = init_activation
+
+    def init(self, generator: Optional[torch.Generator] = None):
+        gen = make_generator(generator)
+        fi, fo, dev = self.in_features, self.out_features, self.device
+        if self.init_mode == "torch_default":
+            v, b = winit.torch_linear_default(gen, fi, fo, dev, self.bias)
+            g = torch.sqrt(torch.sum(v * v))
+        else:
+            if self.init_mode == "uniform":
+                v = winit.kaiming_uniform(gen, fi, fo, dev,
+                                          self.init_activation)
+            elif self.init_mode == "normal":
+                v = winit.kaiming_normal(gen, fi, fo, dev,
+                                         self.init_activation)
+            else:
+                raise ValueError(f"Unknown init_mode {self.init_mode}")
+            g = torch.ones((), device=dev)
+            b = (winit.fan_in_bias(gen, fi, fo, dev, self.init_activation)
+                 if self.bias else None)
+        params = {"v": v, "g": g}
+        if self.bias:
+            params["b"] = b
+        return params
+
+    def apply(self, params, x):
+        y = matmul_t(x, wn_weight(params))
+        if self.bias:
+            y = y + params["b"]
+        return y

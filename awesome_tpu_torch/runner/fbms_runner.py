@@ -21,9 +21,8 @@ Composition-root port of the FBMS paths of `awesome/run/awesome_runner.py`
 
 Every tensor lives on the runner's ``device`` (the card unless the caller
 passes ``"cpu"``); model inits draw from ``torch.Generator``s seeded by
-the config's seed. What the JAX runner has beyond this raises
-``NotImplementedError`` naming its ROADMAP item: CRF-refined joint metrics
-and a device mesh.
+the config's seed. A device mesh, which the JAX runner has, raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,7 +45,6 @@ from awesome_tpu_torch.fit.trainer import (
 
 logger = logging.getLogger(__name__)
 
-_ITEM_CRF = "ops/crf.py, ROADMAP.md Queue 1 item 6"
 _ITEM_MESH = "parallel/mesh.py, ROADMAP.md Queue 1 item 8"
 
 
@@ -746,16 +744,15 @@ class FBMSRunner:
 
     def evaluate_joint(self, compute_crf: bool = False) -> Dict[str, float]:
         """Seg + prior IoU + pixel accuracy of the trained joint model on
-        GT frames. Spec: `run/handles.py:339-477` get_compute_eval_metrics
-        for the joint pipeline. The GT frames, their features and GT masks
-        stay on the device between calls (the in-training cadence calls
-        this every nth epoch)."""
+        GT frames; ``compute_crf`` adds the CRF-refined seg metrics (the
+        `eval/epoch/MeanCRF*` columns of `notebooks/fbms_eval_icml.ipynb`),
+        one batched CRF call over the GT frames. Spec:
+        `run/handles.py:339-477` get_compute_eval_metrics for the joint
+        pipeline. The GT frames, their features and GT masks stay on the
+        device between calls (the in-training cadence calls this every nth
+        epoch)."""
         from awesome_tpu_torch.measures.metrics import iou, pixel_accuracy
 
-        if compute_crf:
-            raise NotImplementedError(
-                f"evaluate_joint(compute_crf=True): CRF is not ported yet "
-                f"({_ITEM_CRF})")
         state = self.joint_state
         wrapper = self.joint_wrapper
         cache = getattr(self, "_eval_joint_cache", None)
@@ -777,8 +774,9 @@ class FBMSRunner:
             }
             self._eval_joint_cache = cache
         seg_ious = prior_ious = accs = prior_accs = []
+        crf_ious, crf_accs = [], []
         if cache["idx"]:
-            rows = []
+            rows, bg_probs = [], []
             with torch.no_grad():
                 for k, frame_idx in enumerate(cache["idx"]):
                     params = {"seg": state.seg_params}
@@ -790,6 +788,7 @@ class FBMSRunner:
                         features=cache["fts"][k:k + 1], grid=cache["grid"],
                         seg_state=state.seg_state, train=False)
                     gt = cache["gts"][k]
+                    bg_probs.append(out[0, ..., 0])
                     row = []
                     for c in range(out.shape[-1]):
                         prob = out[0, ..., c]
@@ -800,6 +799,17 @@ class FBMSRunner:
             seg_ious, accs = table[:, 0], table[:, 1]
             if table.shape[1] > 2:
                 prior_ious, prior_accs = table[:, 2], table[:, 3]
+            if compute_crf:
+                from awesome_tpu_torch.ops.crf import dense_crf_batched
+
+                # the seg output is the BACKGROUND probability (fg = 0)
+                refined = self._tensor(dense_crf_batched(
+                    cache["imgs"], torch.stack(bg_probs),
+                    is_softmax_unaries=True, device=self.device))[..., 0]
+                crf = torch.stack([
+                    torch.stack([iou(p < 0.5, g < 0.5), pixel_accuracy(p, g)])
+                    for p, g in zip(refined, cache["gts"])]).cpu().numpy()
+                crf_ious, crf_accs = crf[:, 0], crf[:, 1]
         metrics = {
             "MeanForegroundBinaryMIOU": float(np.mean(seg_ious))
             if len(seg_ious) else 0.0,
@@ -810,6 +820,9 @@ class FBMSRunner:
         }
         if len(prior_accs):
             metrics["PriorMeanPixelAccuracy"] = float(np.mean(prior_accs))
+        if len(crf_ious):
+            metrics["CRFMeanForegroundBinaryMIOU"] = float(np.mean(crf_ious))
+            metrics["CRFMeanPixelAccuracy"] = float(np.mean(crf_accs))
         return metrics
 
     def _run_with_emergency(self, fn, state_attr: str, kwargs: Dict):
@@ -1160,12 +1173,8 @@ class FBMSRunner:
 
     def train_joint(self, **kwargs) -> Dict:
         """Emergency-dump wrapper around :meth:`_train_joint_impl`
-        (see its docstring for the full contract). CRF-refined metrics and
-        a device mesh raise here, before anything trains."""
-        if kwargs.get("eval_crf"):
-            raise NotImplementedError(
-                f"eval_crf / compute_crf_with_metrics: CRF is not ported "
-                f"yet ({_ITEM_CRF})")
+        (see its docstring for the full contract). A device mesh raises
+        here, before anything trains."""
         self._check_single_device()
         return self._run_with_emergency(
             self._train_joint_impl, "joint_state", kwargs
@@ -1192,7 +1201,7 @@ class FBMSRunner:
         plot_nth_epoch: int = 100,
         plot_dir: Optional[str] = None,
         eval_epoch0: bool = False,  # record the pre-training baseline eval
-        eval_crf: bool = False,  # refused by train_joint
+        eval_crf: bool = False,  # CRF-refined metrics at each eval tick
         resume: bool = False,  # continue from checkpoint_dir's newest state
         checkpoint_nth_epoch: int = 1,  # 'latest' full-state save cadence
     ) -> Dict:
@@ -1307,7 +1316,7 @@ class FBMSRunner:
             self.joint_state = state
             self.joint_wrapper = wrapper
             tracker.epoch = 0  # series indexed by TRAINING epoch
-            for k, v in self.evaluate_joint().items():
+            for k, v in self.evaluate_joint(compute_crf=eval_crf).items():
                 if isinstance(v, float):
                     tracker.epoch_metric(k, v, "eval")
             # the untrained baseline competes for 'best' like any eval
@@ -1342,7 +1351,8 @@ class FBMSRunner:
                 # tick count: metric_at_epoch / the notebook's
                 # index_mapping {0: Baseline, 15: Joint} index by epoch
                 tracker.epoch_metric("Loss", _mean_loss(metrics), "train")
-                for k, v in self.evaluate_joint().items():
+                for k, v in self.evaluate_joint(
+                        compute_crf=eval_crf).items():
                     if isinstance(v, float):
                         tracker.epoch_metric(k, v, "eval")
                 if tracker.is_current_state_best_model():

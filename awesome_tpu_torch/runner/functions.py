@@ -3,8 +3,8 @@
 
 - :func:`get_result`: full-image inference with one image's slice of the
   stacked params (spec `run/functions.py:2111`),
-- :func:`split_model_result`: seg/prior split (`:2432`); its CRF option
-  raises until ``ops/crf.py`` is ported (ROADMAP Queue 1 item 6),
+- :func:`split_model_result`: seg/prior split and an optional dense-CRF
+  refinement of the seg (`:2432`),
 - :func:`get_prior_result`: dense prior eval on an arbitrary-resolution
   grid, chunked (`:2154`),
 - :func:`save_result`: masks + overlay PNGs into a run dir (`:2490`),
@@ -38,14 +38,23 @@ def get_result(wrapper, stacked_params, pixels, index: int,
 def split_model_result(wrapper, output, image: Optional[np.ndarray] = None,
                        use_crf: bool = False, crf_options=None,
                        grid_shape: Optional[Tuple[int, int]] = None):
-    """Split into (seg, prior) maps. Spec: `run/functions.py:2432`."""
-    if use_crf:
-        raise NotImplementedError(
-            "CRF refinement needs ops/crf.py, not ported yet (ROADMAP.md "
-            "Queue 1 item 6)")
+    """Split into (seg, prior[, crf]) maps; ``use_crf`` refines the seg
+    with the dense CRF against ``image`` (on the output's device). Spec:
+    `run/functions.py:2432` + `run/crf.py:45`."""
     seg, prior = wrapper.split_output(output)
-    return {"seg": _host(seg), "prior": None if prior is None
-            else _host(prior), "crf": None}
+    result = {"seg": _host(seg), "prior": None if prior is None
+              else _host(prior), "crf": None}
+    if use_crf:
+        if image is None or grid_shape is None:
+            raise ValueError("CRF needs the image and grid_shape")
+        from awesome_tpu_torch.ops.crf import dense_crf
+
+        device = seg.device if isinstance(seg, torch.Tensor) else None
+        seg_img = result["seg"].reshape(grid_shape)[..., None]
+        refined = dense_crf(image, seg_img, options=crf_options,
+                            device=device)
+        result["crf"] = refined[..., 0].reshape(result["seg"].shape)
+    return result
 
 
 def _host(x) -> np.ndarray:

@@ -11,7 +11,7 @@ Wired for the 2-D pixel pipeline: per-image wrapper models over (y, x, r,
 g, b) pixel matrices, ``xytype`` 'xy', modes 'single', 'none' (seg frozen)
 and 'multi' (one shared seg net). What the JAX runner has beyond that
 raises ``NotImplementedError`` naming its ROADMAP item: image mode
-(``dataset_args['dimension'] == '3d'``), the feature xytypes, CRF, and a
+(``dataset_args['dimension'] == '3d'``), the feature xytypes, and a
 device mesh. Every tensor lives on ``config.device`` (the card unless the
 config says ``cpu``).
 """
@@ -41,8 +41,8 @@ from awesome_tpu_torch.serialization.jsonconv import (
 
 logger = logging.getLogger(__name__)
 
-_ITEM_CRF = "ops/crf.py, ROADMAP.md Queue 1 item 6"
 _ITEM_RUNNER = "ROADMAP.md Queue 1 item 7"
+_ITEM_MESH = "parallel/mesh.py, ROADMAP.md Queue 1 item 8"
 
 
 def _jax_order(tree, path=()):
@@ -184,15 +184,10 @@ class AwesomeRunner(Runner):
             raise NotImplementedError(
                 f"xytype {args['xytype']!r} (with runner/sss_extractor.py) "
                 f"is not ported yet ({_ITEM_RUNNER}); only 'xy' is")
-        for flag in ("compute_crf_with_metrics", "compute_crf_after_training",
-                     "compute_crf_after_pretraining"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag}: CRF is not ported yet ({_ITEM_CRF})")
         if cfg.mesh_shape is not None:
             raise NotImplementedError(
-                "mesh_shape: parallel/mesh.py is not ported yet (ROADMAP.md "
-                "Queue 1 item 8); leave mesh_shape unset for one device")
+                f"mesh_shape: {_ITEM_MESH} is not ported yet; leave "
+                "mesh_shape unset for one device")
 
     # --- build -----------------------------------------------------------
     @staticmethod
@@ -623,12 +618,17 @@ class AwesomeRunner(Runner):
             self._dump_images(epoch=0, folder="prior",
                               indices=range(len(self.samples)))
         gate = aux.get("gate_iou")
-        return {
+        result = {
             "loaded": False,
             "path": state_path,
             "gate_iou": np.asarray([]) if gate is None
             else gate.cpu().numpy(),
         }
+        if cfg.compute_crf_after_pretraining:
+            # after-pretrain CRF'd eval (`awesome_runner.py:335-341`
+            # get_final_save_handle(compute_crf=...))
+            result["metrics"] = self.evaluate(compute_crf=True)
+        return result
 
     def _pretrain_zoo(self, pargs: Dict[str, Any]):
         """Zoo instance from pretrain_args (the reference nests
@@ -767,7 +767,7 @@ class AwesomeRunner(Runner):
         # restored tracker when resuming mid-run)
         if start_epoch == 0:
             if cfg.compute_metrics_during_training_nth_epoch:
-                self.evaluate()
+                self.evaluate(compute_crf=cfg.compute_crf_with_metrics)
             self._maybe_dump_images(epoch=0)
 
         loss_chunks = []
@@ -810,7 +810,7 @@ class AwesomeRunner(Runner):
             if (cfg.compute_metrics_during_training_nth_epoch
                     and epoch % cfg.compute_metrics_during_training_nth_epoch
                     == 0 and epoch < num_epochs):
-                self.evaluate()
+                self.evaluate(compute_crf=cfg.compute_crf_with_metrics)
             self._maybe_dump_images(epoch)
             # LR watchdog early stop: every image's plateau scale under the
             # threshold means every per-image fit is frozen (computed BEFORE
@@ -835,8 +835,10 @@ class AwesomeRunner(Runner):
             for fn in self.handles["epoch_processed"]:
                 fn(self, epoch)
 
-        # training_finished: final metrics, final save, checkpoint
-        final_metrics = self.evaluate()
+        # training_finished: final metrics (+CRF), final save, checkpoint
+        final_metrics = self.evaluate(
+            compute_crf=cfg.compute_crf_with_metrics
+            or cfg.compute_crf_after_training)
         if self.best_params is None:
             self.best_params = state.params
         self.save_checkpoint("end", state=state, epoch=epoch,
@@ -1012,20 +1014,34 @@ class AwesomeRunner(Runner):
 
     def evaluate(self, compute_crf: Optional[bool] = None,
                  params=None) -> Dict[str, float]:
-        """Full-dataset eval: per-image seg/prior IoU + pixel accuracy on the
-        dense grid vs GT, one vmapped forward for all images. Spec:
-        `awesome/run/handles.py:339-477` get_compute_eval_metrics."""
+        """Full-dataset eval: per-image seg/prior (and, with ``compute_crf``,
+        CRF-refined seg) IoU + pixel accuracy on the dense grid vs GT, one
+        vmapped forward for all images. ``compute_crf=None`` takes the
+        config's ``compute_crf_with_metrics``. Spec:
+        `awesome/run/handles.py:339-477` get_compute_eval_metrics (+CRF via
+        `run/handles.py:376-459`, `run/crf.py:45`)."""
         from awesome_tpu_torch.measures.metrics import (
             iou_np,
             pixel_accuracy_np,
         )
+        from awesome_tpu_torch.ops.crf import dense_crf, dense_crf_batched
 
-        if compute_crf:
-            raise NotImplementedError(
-                f"evaluate(compute_crf=True): CRF is not ported yet "
-                f"({_ITEM_CRF})")
+        if compute_crf is None:
+            compute_crf = self.config.compute_crf_with_metrics
         outputs = self._forward_all(params)
-        seg_ious, prior_ious, accs = [], [], []
+        # images of one shape: ONE batched CRF call refines them all (the
+        # reference loops pydensecrf per image on the host); mixed shapes
+        # take the per-image call below
+        crf_refined = None
+        if compute_crf and len({s.shape for s in self.samples}) == 1:
+            imgs = np.stack([s.image for s in self.samples])
+            segs = np.stack([
+                self._crop_output(outputs, i)[:, 0].reshape(s.shape)
+                for i, s in enumerate(self.samples)])
+            crf_refined = dense_crf_batched(imgs, segs,
+                                            is_softmax_unaries=True,
+                                            device=self.device)
+        seg_ious, prior_ious, accs, crf_ious = [], [], [], []
         for i, s in enumerate(self.samples):
             out = self._crop_output(outputs, i)
             seg = out[:, 0:1]
@@ -1036,6 +1052,15 @@ class AwesomeRunner(Runner):
             accs.append(pixel_accuracy_np(seg, gt))
             if prior is not None:
                 prior_ious.append(iou_np(prior > 0.5, gt > 0.5, invert=True))
+            if compute_crf:
+                # the seg probability of BACKGROUND (fg = 0); the CRF
+                # refines the 2-class distribution against the rgb image
+                refined = crf_refined[i] if crf_refined is not None \
+                    else dense_crf(s.image, seg.reshape(s.shape),
+                                   is_softmax_unaries=True,
+                                   device=self.device)
+                crf_ious.append(iou_np(refined[..., 0].reshape(-1, 1) > 0.5,
+                                       gt > 0.5, invert=True))
         metrics = {
             "MeanForegroundBinaryMIOU": float(np.mean(seg_ious)),
             "MeanPixelAccuracy": float(np.mean(accs)),
@@ -1043,6 +1068,8 @@ class AwesomeRunner(Runner):
         if prior_ious:
             metrics["PriorMeanForegroundBinaryMIOU"] = float(
                 np.mean(prior_ious))
+        if crf_ious:
+            metrics["CRFMeanForegroundBinaryMIOU"] = float(np.mean(crf_ious))
         # split-aware variants: the reference reports eval metrics per
         # train/val dataloader (`awesome/util/tensorboard.py:59-122` tag
         # scheme); held-out images get their own means.
@@ -1051,6 +1078,8 @@ class AwesomeRunner(Runner):
                          "MeanPixelAccuracy": accs}
             if prior_ious:
                 per_image["PriorMeanForegroundBinaryMIOU"] = prior_ious
+            if crf_ious:
+                per_image["CRFMeanForegroundBinaryMIOU"] = crf_ious
             for k, vals in per_image.items():
                 vals = np.asarray(vals)
                 metrics[f"train/{k}"] = float(

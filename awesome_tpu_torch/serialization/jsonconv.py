@@ -63,7 +63,10 @@ PORT_MODULES = {
     "awesome_tpu.measures.metrics": "awesome_tpu_torch.measures.metrics",
     "awesome_tpu.nn.adapters": "awesome_tpu_torch.nn.adapters",
     "awesome_tpu.nn.conv": "awesome_tpu_torch.nn.conv",
+    "awesome_tpu.nn.convex_diffeo": "awesome_tpu_torch.nn.convex_diffeo",
+    "awesome_tpu.nn.convex_modules": "awesome_tpu_torch.nn.convex_modules",
     "awesome_tpu.nn.flows": "awesome_tpu_torch.nn.flows",
+    "awesome_tpu.nn.flows_extra": "awesome_tpu_torch.nn.flows_extra",
     "awesome_tpu.nn.icnn": "awesome_tpu_torch.nn.icnn",
     "awesome_tpu.nn.init": "awesome_tpu_torch.nn.init",
     "awesome_tpu.nn.linear": "awesome_tpu_torch.nn.linear",
@@ -72,11 +75,14 @@ PORT_MODULES = {
     "awesome_tpu.nn.noisy_path_connected":
         "awesome_tpu_torch.nn.noisy_path_connected",
     "awesome_tpu.nn.path_connected": "awesome_tpu_torch.nn.path_connected",
+    "awesome_tpu.nn.priors_extra": "awesome_tpu_torch.nn.priors_extra",
     "awesome_tpu.nn.seg": "awesome_tpu_torch.nn.seg",
     "awesome_tpu.nn.wrapper": "awesome_tpu_torch.nn.wrapper",
     "awesome_tpu.nn.zoo": "awesome_tpu_torch.nn.zoo",
+    "awesome_tpu.ops.crf": "awesome_tpu_torch.ops.crf",
     "awesome_tpu.ops.pallas_flagship": "awesome_tpu_torch.ops.flagship",
     "awesome_tpu.ops.pallas_mlp": "awesome_tpu_torch.ops.mlp",
+    "awesome_tpu.ops.permutohedral": "awesome_tpu_torch.ops.permutohedral",
     "awesome_tpu.runner.config": "awesome_tpu_torch.runner.config",
     "awesome_tpu.runner.fbms_runner": "awesome_tpu_torch.runner.fbms_runner",
     "awesome_tpu.runner.functions": "awesome_tpu_torch.runner.functions",

@@ -106,21 +106,46 @@ Phases, each printing its own line (any failure exits nonzero):
     in batches of 2 with an evaluation and a checkpoint each epoch
     (finite losses that fall, evaluations in [0, 1]), a run stopped after
     epoch 1 and resumed to epoch 3 bitwise equal to it, ``evaluate_joint``
-    on both GT frames, one step's ms, peak memory and idle share; the
+    on both GT frames, and once more with the CRF (its metrics and
+    seconds), one step's ms, peak memory and idle share; the
     spatio-temporal fit and its evaluation, plain and in the noisy family
     with its prefits; ``train_joint_from_config`` on a multi-object config
     (8 frames of 64x64, 2 slots, 3 epochs); ``python -m
     awesome_tpu_torch.run`` in a subprocess on an FBMS config (4 frames of
     64x64), which must exit 0 and leave its run folder's checkpoints;
-16. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
+16. the extra priors (``extra_priors_path``): ``StarShapedNet(150)``,
+    ``RotationSymmetricNet(150)``, ``PeriodicNet(200, use_premap=False)``,
+    ``ConvexDiffeomorphismNet.create()`` and ``ConvexMLP()``, each fitted
+    for 300 steps by the autograd fit engine to the ellipse target at
+    480x640 (N = 307,200): ms/step, the device's busy ms/step and idle
+    share, first and last loss (finite, falling), IoU, the star prior's
+    ``W2_r >= 0``; then the round trip ``inverse(apply(x))`` at 480x640 of
+    ``GlowFlow``, ``SplineFlow``, ``NormalizingFlow1D`` and the fitted
+    convex-diffeomorphism prior, each below 1e-3;
+17. the convexity runner with the convex-diffeomorphism prior
+    (``runner_convex_diffeo_path``): a ``NormalizingFlow1D(4, 70)`` in
+    front of ``FullyFusedConvexNextNet(ConvexNextNet(130, 1))``, the CRF
+    with the metrics and after training, the 8 images of the runner phase
+    cut to 100 epochs and 100 pretrain steps: K4 and K5 once per epoch,
+    ms/epoch and idle share of a 20-epoch window, the CRF's metric and ms
+    per evaluation (one call per image, the shapes differ), and the
+    prior's grads at the runner's shape through K4/K5 (the flow's through
+    K5's dx) against the plain-ICNN prior's;
+18. the dense CRF (``crf_path``): ``dense_crf_batched`` on 4 frames of
+    480x640 with the default options (15 iterations), ms per call and per
+    image, its device profile, two calls equal in every bit (and a third
+    under ``torch.use_deterministic_algorithms(True)``); then ``dense_crf``
+    on the card against ``dense_crf_exact`` (the g++-built permutohedral
+    lattice) on a clean 40x40 scene, labels agreeing above 0.97;
+19. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
     K1/K2) its time at its path's shape, its launches on that path, the
     steps, launches per step, its bound on this card, the plain version's
     time, and its error against the plain version at that shape; K2 also
     at the multi-object paths' shapes (G = 16 at 64x64, G = 8 at 480x640),
-    K4/K5 at the runner's (G = 8, per-image points), and K1 at the FBMS
-    pretrain's (480x640, G = 1), each printed as a ``kernel_vs_plain``
-    line too;
-17. the card's name and power limit, and last the result line
+    K4/K5 at the runner's and at the convex-diffeomorphism runner's (G =
+    8, per-image points), and K1 at the FBMS pretrain's (480x640, G = 1),
+    each printed as a ``kernel_vs_plain`` line too;
+20. the card's name and power limit, and last the result line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Phases 5-8 also profile a 20-step window of their fit with
@@ -1412,7 +1437,8 @@ def fbms_path(device, root: str) -> dict:
     finite losses, the last epoch's mean below the first's, evaluations in
     [0, 1]; a run stopped after epoch 1 and resumed to epoch 3 equals it
     bitwise in every leaf and in its losses; ``evaluate_joint`` finds both
-    GT frames; one joint step's ms, peak memory and the device's idle
+    GT frames, and with ``compute_crf=True`` adds the CRF's metrics; one
+    joint step's ms, peak memory and the device's idle
     share; (3) the spatio-temporal ``pretrain`` + ``evaluate``, plain and
     in the noisy family (half the frames' unaries noise, the flow-identity
     and convex prefits); (4) ``train_joint_from_config`` on a
@@ -1514,6 +1540,14 @@ def fbms_path(device, root: str) -> dict:
             raise AssertionError(f"FBMS joint evaluations {name}: {vals}")
     final = first.evaluate_joint()
     _in_unit(final, "evaluate_joint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with_crf = first.evaluate_joint(compute_crf=True)
+    torch.cuda.synchronize()
+    crf_s = time.perf_counter() - t0
+    _in_unit(with_crf, "evaluate_joint(compute_crf=True)")
+    if "CRFMeanForegroundBinaryMIOU" not in with_crf:
+        raise AssertionError(f"evaluate_joint(compute_crf=True): {with_crf}")
     if final["num_gt_frames"] != 2:
         raise AssertionError(f"evaluate_joint found "
                              f"{final['num_gt_frames']} GT frames, want 2")
@@ -1553,6 +1587,7 @@ def fbms_path(device, root: str) -> dict:
         "epochs": FBMS_EPOCHS, "batch": 2, "steps": len(loss),
         "loss": loss.tolist(), "epoch_loss": epochs.tolist(),
         "evaluations": evals, "evaluate_joint": final,
+        "evaluate_joint_crf": {"metrics": with_crf, "seconds": crf_s},
         "seconds_incl_evals_and_checkpoints": joint_s,
         "ms_per_step": ms, "peak_memory_gib": peak,
         "profile": device_profile(lambda: step(state, batch), 1, ms),
@@ -1658,6 +1693,447 @@ def fbms_path(device, root: str) -> dict:
     out["k1"] = k1
     out["seconds"] = time.perf_counter() - t_all
     return out
+
+
+# The extra-priors phase: the teaser widths at the FBMS frame size, the
+# fit engine's default Adamax
+EXTRA_SHAPE = (480, 640)
+EXTRA_STEPS = 300
+ROUND_TRIP_MAX = 1e-3  # .claude/skills/verify/SKILL.md's invertibility check
+
+
+def centered_grid(h: int, w: int, device):
+    """Pixel centres scaled to [-0.5, 0.5), (N, 2) as (x, y). No point sits
+    at 0: there the radius's square root gives the symmetry prior's offset
+    a NaN gradient, and the fit's NaN guard would reject every step."""
+    import torch
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    pts = np.stack([(xx + 0.5) / w - 0.5, (yy + 0.5) / h - 0.5], -1)
+    return torch.tensor(pts.reshape(-1, 2), dtype=torch.float32,
+                        device=device)
+
+
+def extra_priors_path(device) -> dict:
+    """Each extra prior fitted by the autograd fit engine (``fit_prior``,
+    Adamax lr 1e-3, the projection after the step) to the ellipse target
+    at 480x640: ms/step, the device's busy ms/step and idle share, first
+    and last loss (finite, falling), the fitted mask's IoU; the star
+    prior's ``W2_r >= 0`` after the fit. Then the round trip
+    ``inverse(apply(x))`` at 480x640 of three flows (seeded params plus
+    noise) and of the fitted convex-diffeomorphism prior's deformation,
+    each below ``ROUND_TRIP_MAX``."""
+    import torch
+
+    from awesome_tpu_torch.fit.prior_fit import FitConfig, fit_prior
+    from awesome_tpu_torch.measures.metrics import iou
+    from awesome_tpu_torch.nn.convex_diffeo import ConvexDiffeomorphismNet
+    from awesome_tpu_torch.nn.convex_modules import ConvexMLP
+    from awesome_tpu_torch.nn.flows import NormalizingFlow1D
+    from awesome_tpu_torch.nn.flows_extra import GlowFlow, SplineFlow
+    from awesome_tpu_torch.nn.priors_extra import (
+        PeriodicNet,
+        RotationSymmetricNet,
+        StarShapedNet,
+    )
+
+    h, w = EXTRA_SHAPE
+    pts = centered_grid(h, w, device)
+    target = ellipse_target(h, w, device)
+    cfg = FitConfig(num_steps=EXTRA_STEPS)
+    short = dataclasses.replace(cfg, num_steps=PROF_STEPS)
+    out = {"phase": "extra_priors", "shape": [h, w], "steps": EXTRA_STEPS,
+           "fits": {}, "round_trip_max_abs_err": {}}
+    fitted_cd = None
+    for name, model in (
+            ("StarShapedNet(150)", StarShapedNet(150, device=device)),
+            ("RotationSymmetricNet(150)",
+             RotationSymmetricNet(150, device=device)),
+            ("PeriodicNet(200, use_premap=False)",
+             PeriodicNet(200, use_premap=False, device=device)),
+            ("ConvexDiffeomorphismNet.create()",
+             ConvexDiffeomorphismNet.create(device=device)),
+            ("ConvexMLP()", ConvexMLP(device=device))):
+        params = model.init(torch.Generator().manual_seed(11))
+        fit_prior(model, params, pts, target,
+                  dataclasses.replace(cfg, num_steps=2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fitted, aux = fit_prior(model, params, pts, target, cfg)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / EXTRA_STEPS
+        hist = aux["loss_hist"].cpu().numpy()
+        check_hist(hist, f"the {name} fit")
+        with torch.no_grad():
+            prob = torch.sigmoid(model.apply(fitted, pts))
+        res = {"ms_per_step": ms, "loss_first": float(hist[0]),
+               "loss_last": float(hist[-1]),
+               "iou": float(iou(prob > 0.5, target > 0.5, invert=True)),
+               "profile": device_profile(
+                   lambda m=model, p=params: fit_prior(m, p, pts, target,
+                                                       short),
+                   PROF_STEPS, ms)}
+        if isinstance(model, StarShapedNet):
+            w2r = float(fitted["W2_r"]["w"].min())
+            if w2r < 0.0:
+                raise AssertionError(f"StarShapedNet: W2_r min {w2r} < 0 "
+                                     "after the fit")
+            res["W2_r_min"] = w2r
+        if isinstance(model, ConvexDiffeomorphismNet):
+            fitted_cd = (model, fitted)
+        out["fits"][name] = res
+    trips = []
+    for seed, (name, flow) in enumerate((
+            ("GlowFlow(2, 64, 4)", GlowFlow(2, 64, 4, device=device)),
+            ("SplineFlow(2, 32, 4, 8 bins)",
+             SplineFlow(2, 32, 4, num_bins=8, device=device)),
+            ("NormalizingFlow1D(4, 130)",
+             NormalizingFlow1D(4, 130, device=device)))):
+        params = perturbed_params(flow, 30 + seed)
+        trips.append((name, flow.apply, flow.inverse, params))
+    model, fitted = fitted_cd
+    trips.append(("ConvexDiffeomorphismNet.create(), fitted",
+                  model.deformation, model.inverse, fitted))
+    for name, fwd, inv, params in trips:
+        with torch.no_grad():
+            err = float((inv(params, fwd(params, pts)) - pts).abs().max())
+        if not err < ROUND_TRIP_MAX:
+            raise AssertionError(f"{name}: round trip {err} >= "
+                                 f"{ROUND_TRIP_MAX}")
+        out["round_trip_max_abs_err"][name] = err
+    return out
+
+
+def prior_grads_vs_plain(fused, stacked, pts, tgt, wts) -> dict:
+    """The prior's fit-loss grads (the weighted SE of the sigmoid) of G
+    images with their own points, one ``vmap`` of ``torch.func.grad``,
+    through ``fused`` (a ConvexDiffeomorphismNet whose convex part is a
+    ``FullyFusedConvexNextNet``: one K4 and one K5 launch) against the same
+    prior with the plain ``ConvexNextNet``. Every element within rtol 5e-4,
+    atol 1e-6 of the largest grad (as the kernels' own checks), or within
+    twice the plain version's own error against a float64 run of the plain
+    version there (an element past both counts in
+    ``beyond_float64_rule``). The
+    launches made here are taken out of the launch counts again."""
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.nn.convex_diffeo import ConvexDiffeomorphismNet
+    from awesome_tpu_torch.ops import mlp
+
+    plain = ConvexDiffeomorphismNet(fused.in_features, flow=fused.flow,
+                                    convex=fused.convex.base,
+                                    device=fused.device)
+
+    def grads(model, args):
+        def loss(p, x, t, wt):
+            prob = torch.sigmoid(model.apply(p, x)[..., 0])
+            return torch.sum(wt * (prob - t) ** 2)
+
+        return torch.func.vmap(torch.func.grad(loss))(*args)
+
+    before = mlp.icnn_forward_cuda.launches, mlp.icnn_backward_cuda.launches
+    got = grads(fused, (stacked, pts, tgt, wts))
+    launches = {"K4": mlp.icnn_forward_cuda.launches - before[0],
+                "K5": mlp.icnn_backward_cuda.launches - before[1]}
+    mlp.icnn_forward_cuda.launches, mlp.icnn_backward_cuda.launches = before
+    ref = grads(plain, (stacked, pts, tgt, wts))
+    ref64 = grads(plain, T.tree_map(lambda a: a.double(),
+                                    (stacked, pts, tgt, wts)))
+    past = beyond = 0
+    err = err64 = plain64 = 0.0
+    largest = max(float(p.abs().max()) for p in T.tree_leaves(ref))
+    for k, p, r in zip(T.tree_leaves(got), T.tree_leaves(ref),
+                       T.tree_leaves(ref64)):
+        k, p = k.double(), p.double()
+        off = (k - p).abs() > GRAD_RTOL * p.abs() + GRAD_ATOL * largest
+        past += int(off.sum())
+        beyond += int((off & ((k - r).abs() > 2.0 * (p - r).abs())).sum())
+        err = max(err, float((k - p).abs().max()))
+        err64 = max(err64, float((k - r).abs().max()))
+        plain64 = max(plain64, float((p - r).abs().max()))
+    return {"launches": launches, "leaves": len(T.tree_leaves(got)),
+            "elements": sum(a.numel() for a in T.tree_leaves(got)),
+            "max_abs_err": err, "past_tolerance": past,
+            "beyond_float64_rule": beyond,
+            "max_abs_err_vs_float64": err64,
+            "plain_max_abs_err_vs_float64": plain64}
+
+
+def convex_diffeo_prior(device):
+    """The runner's convex-diffeomorphism prior: ``NormalizingFlow1D`` of 4
+    couplings of width 70 in front of ``FullyFusedConvexNextNet(
+    ConvexNextNet(130, 1))`` (``ConvexDiffeomorphismNet.create()``'s
+    widths with the fused ICNN)."""
+    from awesome_tpu_torch.nn.convex_diffeo import ConvexDiffeomorphismNet
+    from awesome_tpu_torch.nn.flows import NormalizingFlow1D
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.ops.mlp import FullyFusedConvexNextNet
+
+    return ConvexDiffeomorphismNet(
+        flow=NormalizingFlow1D(num_coupling=4, width=70, device=device),
+        convex=FullyFusedConvexNextNet(ConvexNextNet(
+            n_hidden=130, n_hidden_layers=1, device=device)),
+        device=device)
+
+
+def convex_diffeo_grads_vs_plain(device, g: int, n: int, seed: int) -> dict:
+    """:func:`prior_grads_vs_plain` on seeded inputs: G perturbed inits,
+    uniform points per image, ellipse-like targets, weights 1/n."""
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+
+    model = convex_diffeo_prior(device)
+    stacked = T.stack_trees([perturbed_params(model, seed + i)
+                             for i in range(g)])
+    gen = torch.Generator().manual_seed(seed)
+    pts = torch.rand((g, n, 2), generator=gen)
+    tgt = (((pts[..., 0] - 0.5) ** 2 / 0.09 + (pts[..., 1] - 0.5) ** 2
+            / 0.05) > 1.0).float()
+    wts = torch.full((g, n), 1.0 / n)
+    return prior_grads_vs_plain(model, stacked, pts.to(device),
+                                tgt.to(device), wts.to(device))
+
+
+# The convex-diffeomorphism runner phase: RUNNER_SHAPES at the published
+# widths, cut from 3000 epochs and 2000 pretrain steps
+CD_EPOCHS = 100
+CD_PRETRAIN = 100
+CD_PENALTY_AT = 67  # the extra penalty's share of the runner phase's run
+
+
+def runner_convex_diffeo_path(device, root: str) -> dict:
+    """The convexity runner (as ``python -m awesome_tpu_torch.run`` drives
+    it) with the prior ``ConvexDiffeomorphismNet(flow=NormalizingFlow1D(4,
+    70), convex=FullyFusedConvexNextNet(ConvexNextNet(130, 1)))`` and
+    ``compute_crf_with_metrics`` and ``compute_crf_after_training``: the 8
+    ``RUNNER_SHAPES`` images, ``CD_EPOCHS`` epochs and ``CD_PRETRAIN``
+    pretrain steps. K4 and K5 launch once each per training epoch (K4 once
+    more per evaluation); a 20-epoch window timed and profiled; the CRF's
+    ms per evaluation (mixed shapes: one call per image) and its metric;
+    the prior's grads at the runner's shape through K4/K5 against the
+    plain ICNN prior's (:func:`prior_grads_vs_plain`)."""
+    import shutil
+
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.pixel_trainer import (
+        make_pixel_segment_fn,
+        pixel_train_init,
+    )
+    from awesome_tpu_torch.runner.runner import AwesomeRunner
+
+    shutil.rmtree(root, ignore_errors=True)
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    zero_counts()
+    prior = convex_diffeo_prior(device)
+    runner = AwesomeRunner(runner_config(
+        root, device, prior_model_type="awesome_tpu_torch.nn.convex_diffeo."
+        "ConvexDiffeomorphismNet",
+        prior_model_args={"flow": prior.flow, "convex": prior.convex},
+        compute_crf_with_metrics=True, compute_crf_after_training=True,
+        num_epochs=CD_EPOCHS, extra_penalty_after_n_epochs=CD_PENALTY_AT,
+        compute_metrics_during_training_nth_epoch=50,
+        validation_each_nth_epoch=50,
+        pretrain_args={"num_epochs": CD_PRETRAIN,
+                       "proper_prior_fit_retrys": 1}))
+    runner.build()
+    n_pad = int(runner._batch["px"].shape[1])
+    t0 = time.perf_counter()
+    pre = runner.pretrain()
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    _, _, k4_pre, k5_pre, _ = counts()
+    evals0 = _evals(runner)
+    t0 = time.perf_counter()
+    res = runner.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    _, _, k4_tr, k5_tr, _ = counts()
+    k4_tr, k5_tr = k4_tr - k4_pre, k5_tr - k5_pre
+    evals = _evals(runner) - evals0
+    if k5_tr != CD_EPOCHS or k4_tr != CD_EPOCHS + evals:
+        raise AssertionError(f"convex-diffeo runner: K4 {k4_tr}, K5 {k5_tr} "
+                             f"launches in {CD_EPOCHS} epochs and {evals} "
+                             "evaluations")
+    hist = res["loss_hist"]
+    if not np.isfinite(hist).all():
+        raise AssertionError("non-finite loss in the convex-diffeo runner")
+    curve = hist[runner.train_indices].mean(axis=0)
+    for part, name in ((curve[:CD_PENALTY_AT], "before"),
+                       (curve[CD_PENALTY_AT:], "with")):
+        check_hist(part, f"the convex-diffeo runner {name} the extra "
+                   "penalty")
+    final = res["final_metrics"]
+    crf_iou = final.get("CRFMeanForegroundBinaryMIOU")
+    if crf_iou is None or not 0.0 <= crf_iou <= 1.0:
+        raise AssertionError(f"the runner's CRF metric: {crf_iou}")
+    trained = T.tree_map(torch.clone, runner.stacked_params)
+
+    # a 20-epoch window of the training segment
+    tcfg = runner._train_cfg(PROF_STEPS)
+    segment = make_pixel_segment_fn(runner.wrapper, tcfg, PROF_STEPS)
+    state = pixel_train_init(runner.wrapper, trained, tcfg)
+    b = runner._dev_batch
+    batch = (b["px"], b["gt"], b["scr_mask"], b["rnd_mask"])
+
+    def window():
+        return segment(state, *batch)
+
+    window()
+    torch.cuda.synchronize()
+    _, _, w4, w5, _ = counts()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    ms_epoch = 1e3 * (time.perf_counter() - t0) / PROF_STEPS
+    _, _, w4b, w5b, _ = counts()
+    per_epoch = {"K4": (w4b - w4) / PROF_STEPS, "K5": (w5b - w5) / PROF_STEPS}
+    if per_epoch != {"K4": 1.0, "K5": 1.0}:
+        raise AssertionError(f"convex-diffeo runner window: {per_epoch} "
+                             "launches per epoch")
+    profile = device_profile(window, PROF_STEPS, ms_epoch)
+
+    # the CRF's share of an evaluation
+    times = {}
+    for crf in (False, True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = runner.evaluate(compute_crf=crf)
+        torch.cuda.synchronize()
+        times.setdefault(crf, []).append(time.perf_counter() - t0)
+    crf_ms = 1e3 * (min(times[True]) - min(times[False]))
+
+    # the prior's grads on this path through K4/K5 against the plain ICNN
+    valid = b["valid"].to(torch.float32)
+    grads = prior_grads_vs_plain(
+        runner.wrapper.prior_module, trained["prior"], b["px"][..., 0:2],
+        b["gt"][..., 0], valid / valid.sum(dim=1, keepdim=True))
+    if grads["launches"] != {"K4": 1, "K5": 1} or \
+            grads["beyond_float64_rule"]:
+        raise AssertionError(f"convex-diffeo prior grads through K4/K5: "
+                             f"{grads}")
+    torch.cuda.synchronize()
+    return {
+        "phase": "runner_convex_diffeo", "images": len(RUNNER_SHAPES),
+        "padded_points": n_pad,
+        "cuts": {"epochs": [CD_EPOCHS, 3000],
+                 "pretrain_steps": [CD_PRETRAIN, 2000],
+                 "extra_penalty_after": [CD_PENALTY_AT, 200]},
+        "pretrain_s": pre_s, "gate_iou": [float(v) for v in pre["gate_iou"]],
+        "train_s": train_s,
+        "train_ms_per_epoch_incl_crf_evals": 1e3 * train_s / CD_EPOCHS,
+        "ms_per_epoch": ms_epoch, "profile": profile,
+        "launches": {"train": {"K4": k4_tr, "K5": k5_tr,
+                               "epochs": CD_EPOCHS, "evaluations": evals},
+                     "per_epoch": per_epoch},
+        "final_metrics": final, "metrics_with_crf": metrics,
+        "crf_ms_per_evaluation": crf_ms,
+        "crf_ms_per_image": crf_ms / len(RUNNER_SHAPES),
+        "evaluate_ms": {"with_crf": 1e3 * min(times[True]),
+                        "without": 1e3 * min(times[False])},
+        "prior_grads_vs_plain": grads,
+        "k4": k4_tr, "k5": k5_tr,
+        "seconds": time.perf_counter() - t_all,
+    }
+
+
+def crf_frames(b: int, h: int, w: int, seed: int):
+    """``b`` noisy two-colour frames with an ellipse object each, and
+    noisy background probabilities (fg = 0)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    imgs, unaries = [], []
+    for i in range(b):
+        fg = ((yy - h * (0.4 + 0.05 * i)) ** 2 / (0.06 * h * h)
+              + (xx - w * 0.5) ** 2 / (0.04 * w * w)) <= 1.0
+        img = np.where(fg[..., None], [0.8, 0.3, 0.2], [0.1, 0.4, 0.6])
+        imgs.append(np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1))
+        unaries.append(np.clip(np.where(fg, 0.2, 0.8)
+                               + rng.normal(0, 0.25, fg.shape), 0, 1))
+    return np.stack(imgs).astype(np.float32), np.stack(unaries).astype(
+        np.float32)
+
+
+def crf_agreement(device="cuda") -> dict:
+    """``dense_crf`` on the card against ``dense_crf_exact`` (the g++-built
+    permutohedral lattice, host) on the clean 40x40 scene of
+    ``tests/test_permutohedral.py::test_xla_crf_agrees_with_native``: the
+    share of pixels whose labels agree."""
+    from awesome_tpu_torch.ops.crf import CRFOptions, dense_crf
+    from awesome_tpu_torch.ops.permutohedral import dense_crf_exact
+
+    rng = np.random.default_rng(0)
+    h = w = 40
+    img = np.zeros((h, w, 3), np.float32) + 0.1
+    obj = np.zeros((h, w), bool)
+    obj[10:30, 10:30] = True
+    img[obj] = 0.9
+    probs2 = np.where(obj, 0.8, 0.2).astype(np.float32)
+    probs2 = np.where(rng.random(obj.shape) < 0.08, 1.0 - probs2, probs2)
+    exact = dense_crf_exact(img, np.stack([probs2, 1 - probs2], -1),
+                            gaussian_sdims=(3, 3), bilateral_sdims=(10, 10),
+                            iterations=5)[..., 0]
+    grid = dense_crf(img, probs2[..., None], device=device,
+                     options=CRFOptions(max_iterations=5,
+                                        gaussian_sdims=(3, 3),
+                                        bilateral_sdims=(10, 10)))[..., 0]
+    return {"label_agreement": float(((exact > 0.5) == (grid > 0.5))
+                                     .mean())}
+
+
+def crf_path(device) -> dict:
+    """``dense_crf_batched`` on 4 frames at the FBMS frame size with the
+    default ``CRFOptions`` (15 iterations): ms per call and per image, two
+    calls equal in every bit (and a third under
+    ``torch.use_deterministic_algorithms(True)``); then the agreement with
+    the exact CRF (above 0.97)."""
+    import torch
+
+    from awesome_tpu_torch.ops.crf import CRFOptions, dense_crf_batched
+
+    h, w = FBMS_SHAPE
+    imgs, unaries = crf_frames(4, h, w, 0)
+    opts = CRFOptions()
+    first = dense_crf_batched(imgs, unaries, options=opts, device=device)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = dense_crf_batched(imgs, unaries, options=opts, device=device)
+        times.append(time.perf_counter() - t0)
+        if not np.array_equal(first, again):
+            raise AssertionError("two CRF calls on the same input differ")
+    torch.use_deterministic_algorithms(True)
+    try:
+        flagged = dense_crf_batched(imgs, unaries, options=opts,
+                                    device=device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not np.array_equal(first, flagged):
+        raise AssertionError("the CRF differs under deterministic "
+                             "algorithms")
+    if not np.isfinite(first).all():
+        raise AssertionError("non-finite CRF output")
+    fg = unaries < 0.5
+    agree = crf_agreement(device)
+    if not agree["label_agreement"] > 0.97:
+        raise AssertionError(f"CRF against the exact CRF: {agree}")
+    ms = 1e3 * min(times)
+    return {"phase": "crf", "frames": 4, "shape": [h, w],
+            "iterations": opts.max_iterations, "ms_per_call": ms,
+            "ms_per_image": ms / 4,
+            "profile": device_profile(
+                lambda: dense_crf_batched(imgs, unaries, options=opts,
+                                          device=device), 1, ms),
+            "bitwise_repeat": True,
+            "bitwise_under_deterministic_algorithms": True,
+            "labels_changed_share": float(((first[..., 0] < 0.5) != fg)
+                                          .mean()),
+            "exact_crf": agree}
 
 
 # (what it serves, width, hidden layers, in_features) of the ICNNs the
@@ -2233,6 +2709,10 @@ def main() -> int:
     print(json.dumps(run), flush=True)
     fbms = fbms_path(dev, os.path.join("build", "smoke_fbms"))
     print(json.dumps(fbms), flush=True)
+    print(json.dumps(extra_priors_path(dev)), flush=True)
+    cd = runner_convex_diffeo_path(dev, os.path.join("build", "smoke_cd"))
+    print(json.dumps(cd), flush=True)
+    print(json.dumps(crf_path(dev)), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
@@ -2264,6 +2744,19 @@ def main() -> int:
                           "max_abs_err": entry["max_abs_err"],
                           "bitwise_repeat": True}), flush=True)
     kernels += runner_kernels
+    cd_kernels = icnn_entries(
+        cd["k4"], cd["k5"], CD_EPOCHS, 50, dev, n=cd["padded_points"],
+        g=len(RUNNER_SHAPES), per_image=True,
+        tag=f", G={len(RUNNER_SHAPES)}, convex-diffeomorphism runner, "
+        "per-image points", seed=21)
+    for entry in cd_kernels:
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel":
+                          entry["name"], "path": "runner_convex_diffeo",
+                          "n": cd["padded_points"],
+                          "g": len(RUNNER_SHAPES), "points": "per_image",
+                          "max_abs_err": entry["max_abs_err"],
+                          "bitwise_repeat": True}), flush=True)
+    kernels += cd_kernels
     for mo, (h, w), seed, reps in ((mo_small, (64, 64), 15, 50),
                                    (mo_large, (480, 640), 17, 10)):
         entry = kernel_entry(

@@ -277,8 +277,8 @@ def test_skip_pretrain_on_resume_matches_jax(tmp_path):
 
 
 def test_options_left_out_raise(seq):
-    """A device mesh and the CRF-refined metrics raise, naming their
-    ROADMAP items, before anything trains."""
+    """A device mesh raises, naming its ROADMAP item, before anything
+    trains."""
     tr = TR.FBMSRunner(TR.FBMSExperimentConfig(dataset_path=seq,
                                                mesh_shape=[2, 1], **SMALL),
                        device="cpu").build()
@@ -286,11 +286,6 @@ def test_options_left_out_raise(seq):
         tr.pretrain()
     with pytest.raises(NotImplementedError, match="item 8"):
         tr.train_joint(num_epochs=1)
-    tr.config.mesh_shape = None
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tr.train_joint(num_epochs=1, eval_crf=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tr.evaluate_joint(compute_crf=True)
 
 
 def _cli_args(seq, runs):

@@ -20,6 +20,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from awesome_tpu.fit import trainer as JT
 from awesome_tpu.nn import seg as JS
@@ -34,6 +35,17 @@ SMALL = dict(prior_hidden_units=8, prior_flows=2, convex_hidden_units=12,
 STEP_RTOL, EPOCH_RTOL, METRIC_ATOL = 1e-4, 1e-3, 1e-3
 TRAIN = dict(num_epochs=1, batch_size=2, lr=1e-3, prior_lr=1e-3, seed=2,
              eval_nth_epoch=1)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the port-only run below: the suite's other
+    workers share the cores (the run is held to itself, so the thread
+    count cannot change what it checks)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -139,3 +151,39 @@ def test_joint_checkpoints_and_run_folder(joint_runs, tmp_path):
                  "treedef.txt"):
         assert os.path.exists(os.path.join(out, name)), name
     assert tr.export_tensorboard(str(tmp_path / "tb")) == str(tmp_path / "tb")
+
+
+def test_evaluate_joint_with_crf_matches_jax(joint_runs):
+    """``evaluate_joint(compute_crf=True)``: one batched CRF call over the
+    GT frames on each side, its IoU and pixel accuracy at atol 1e-3."""
+    tr, jr = joint_runs["tr"], joint_runs["jr"]
+    et, ej = tr.evaluate_joint(compute_crf=True), \
+        jr.evaluate_joint(compute_crf=True)
+    assert set(et) == set(ej)
+    assert {"CRFMeanForegroundBinaryMIOU", "CRFMeanPixelAccuracy"} <= set(et)
+    for k in ej:
+        assert abs(et[k] - ej[k]) <= METRIC_ATOL, (k, et[k], ej[k])
+
+
+def test_train_joint_eval_crf_reaches_the_crf(seq, joint_runs, tmp_path,
+                                              monkeypatch, one_thread):
+    """``train_joint(eval_crf=True)`` refines with the CRF at the epoch-0
+    baseline and at every evaluation tick (port only, one epoch from the
+    bridged priors)."""
+    tr = TR.FBMSRunner(TR.FBMSExperimentConfig(dataset_path=seq, **SMALL),
+                       device="cpu").build()
+    tr.joint_prior_init = joint_runs["tr"].joint_prior_init
+    seen = []
+    real = tr.evaluate_joint
+
+    def spy(compute_crf=False):
+        seen.append(compute_crf)
+        return real(compute_crf=compute_crf)
+
+    monkeypatch.setattr(tr, "evaluate_joint", spy)
+    tr.train_joint(checkpoint_dir=str(tmp_path / "ck"), eval_crf=True,
+                   eval_epoch0=True, **TRAIN)
+    assert seen == [True, True]
+    series = tr.joint_tracker.series[("CRFMeanForegroundBinaryMIOU", "epoch",
+                                      "eval")]
+    assert series.steps == [0, 1]

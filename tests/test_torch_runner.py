@@ -268,9 +268,6 @@ def _cli_args(folder):
 @pytest.mark.parametrize("option, item", [
     (dict(dataset_args={"dimension": "3d"}), "item 7"),
     (dict(dataset_args={"xytype": "featxy"}), "item 7"),
-    (dict(compute_crf_with_metrics=True), "item 6"),
-    (dict(compute_crf_after_training=True), "item 6"),
-    (dict(compute_crf_after_pretraining=True), "item 6"),
     (dict(mesh_shape=[2, 1]), "item 8"),
     (dict(segmentation_model_type="awesome_tpu.nn.seg.CNNNet"), "item 7"),
 ])
@@ -290,13 +287,6 @@ def test_fbms_config_exits_naming_the_item(tmp_path):
     cfg.prepare()
     with pytest.raises(SystemExit, match="FBMS sequence directory .*none"):
         run.main(cfg)
-
-
-def test_evaluate_with_crf_raises(tmp_path):
-    runner = AwesomeRunner(_port_config(tmp_path, do_pretraining=False))
-    runner.build()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        runner.evaluate(compute_crf=True)
 
 
 def test_segmentation_state_warm_start(tmp_path):
