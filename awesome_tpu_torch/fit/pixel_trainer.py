@@ -152,10 +152,26 @@ def _weight_decay(cfg: PixelTrainConfig, params: Params):
     return None
 
 
+def _split_seg_state(params: Params, stateful_seg: bool):
+    """``(optimized params, seg state)``: with a stateful seg net
+    (``params['seg']`` a ``(seg_params, seg_state)`` pair, the UNet's
+    batch norm) the state is split off; it is not optimized."""
+    if not stateful_seg:
+        return params, None
+    seg_params, seg_state = params["seg"]
+    return dict(params, seg=seg_params), seg_state
+
+
 def _make_pixel_step(wrapper, cfg: PixelTrainConfig,
-                     loss_impl: Optional[Callable] = None) -> Callable:
+                     loss_impl: Optional[Callable] = None,
+                     stateful_seg: bool = False) -> Callable:
     """One training epoch for ALL images: ``(carry, epoch (B,), px, gt,
-    smask, rmask, trainable (B,)) -> (carry, loss (B,))``."""
+    smask, rmask, trainable (B,)) -> (carry, loss (B,))``.
+
+    ``stateful_seg``: ``params['seg']`` is a ``(seg_params, seg_state)``
+    pair and ``loss_impl(params, seg_state, px, gt, smask, rmask, extra)``
+    returns ``(loss, new_seg_state)``; the new state is kept where the
+    image's step is."""
     _, update_fn = _pixel_optim(cfg)
     if loss_impl is None:
 
@@ -166,23 +182,32 @@ def _make_pixel_step(wrapper, cfg: PixelTrainConfig,
                 pen_base_scale=cfg.pen_base_scale,
                 pen_align_scale=cfg.pen_align_scale)
 
-    vgv = torch.func.vmap(torch.func.grad_and_value(loss_impl))
+    vgv = torch.func.vmap(torch.func.grad_and_value(loss_impl,
+                                                    has_aux=stateful_seg))
     has_clip = hasattr(wrapper, "enforce_convexity")
 
     def step(carry, epoch, px, gt, smask, rmask, trainable):
         params, opt_state, sched = carry
         extra = _extra_flag(cfg, epoch)
-        grads, loss = vgv(params, px, gt, smask, rmask, extra)
+        opt_params, seg_state = _split_seg_state(params, stateful_seg)
+        if stateful_seg:
+            grads, (loss, new_seg_state) = vgv(opt_params, seg_state, px,
+                                               gt, smask, rmask, extra)
+        else:
+            grads, loss = vgv(opt_params, px, gt, smask, rmask, extra)
         new_params, new_opt = update_fn(
-            params, grads, opt_state, _lr(cfg, sched, extra),
-            weight_decay=_weight_decay(cfg, params))
+            opt_params, grads, opt_state, _lr(cfg, sched, extra),
+            weight_decay=_weight_decay(cfg, opt_params))
         if has_clip:
             new_params = wrapper.enforce_convexity(new_params)
         if not cfg.train_segmentation and isinstance(new_params, dict) and (
                 "seg" in new_params):
             # segmentation_training_mode 'none': seg subtree excluded from
             # optimization (`awesome/run/awesome_runner.py:448-457`)
-            new_params = dict(new_params, seg=params["seg"])
+            new_params = dict(new_params, seg=opt_params["seg"])
+        if stateful_seg:
+            new_params = dict(new_params,
+                              seg=(new_params["seg"], new_seg_state))
         # validation holdout: a non-trainable (val) image's params are
         # NEVER stepped; its loss is a pure forward measurement (the
         # reference's no-grad val phase, `agent/torch_agent.py:233-243`)
@@ -199,15 +224,18 @@ def _make_pixel_step(wrapper, cfg: PixelTrainConfig,
 
 
 def pixel_train_init(wrapper, stacked_params: Params,
-                     cfg: PixelTrainConfig) -> PixelTrainState:
-    """Initial stacked train state for the per-image segment engine."""
+                     cfg: PixelTrainConfig,
+                     stateful_seg: bool = False) -> PixelTrainState:
+    """Initial stacked train state for the per-image segment engine (a
+    stateful seg net's state gets no optimizer state)."""
     del wrapper
     init_fn, _ = _pixel_optim(cfg)
     first = T.tree_leaves(stacked_params)[0]
     batch, dev = first.shape[0], first.device
     return PixelTrainState(
         params=stacked_params,
-        opt_state=init_fn(stacked_params, (batch,)),
+        opt_state=init_fn(_split_seg_state(stacked_params, stateful_seg)[0],
+                          (batch,)),
         sched=optim.plateau_init(torch.float32, (batch,), dev),
         epoch=torch.zeros((batch,), dtype=torch.int32, device=dev),
     )
@@ -236,15 +264,16 @@ def _all_trainable(gt: torch.Tensor, trainable) -> torch.Tensor:
 
 
 def make_pixel_segment_fn(wrapper, cfg: PixelTrainConfig, segment_len: int,
-                          loss_impl: Optional[Callable] = None) -> Callable:
+                          loss_impl: Optional[Callable] = None,
+                          stateful_seg: bool = False) -> Callable:
     """Build ``segment(state, px, gt, smask, rmask, trainable) -> (state,
     aux)``: ``segment_len`` epochs for ALL images, resumable across calls
     (absolute epoch, optimizer moments and plateau state live in the
     state). ``trainable`` (B,) bool: False = validation holdout, the
     image's params stay frozen and its loss is forward-only.
     ``aux['loss_hist']`` is (B, segment_len), ``aux['lr_scale']`` (B,),
-    both on the device."""
-    step = _make_pixel_step(wrapper, cfg, loss_impl)
+    both on the device. ``stateful_seg``: see :func:`_make_pixel_step`."""
+    step = _make_pixel_step(wrapper, cfg, loss_impl, stateful_seg)
 
     def segment(state, px, gt, smask, rmask, trainable=None):
         return _run_segment(step, state, segment_len, (px, gt, smask, rmask),

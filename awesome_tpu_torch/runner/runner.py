@@ -7,13 +7,15 @@ dataset -> build models -> pretrain -> train -> eval). The reference's
 event attachments are explicit phases here; per-image weight swapping is
 the stacked-params engine of ``fit/pixel_trainer.py``.
 
-Wired for the 2-D pixel pipeline: per-image wrapper models over (y, x, r,
-g, b) pixel matrices, ``xytype`` 'xy', modes 'single', 'none' (seg frozen)
-and 'multi' (one shared seg net). What the JAX runner has beyond that
-raises ``NotImplementedError`` naming its ROADMAP item: image mode
-(``dataset_args['dimension'] == '3d'``), the feature xytypes, and a
-device mesh. Every tensor lives on ``config.device`` (the card unless the
-config says ``cpu``).
+Wired for the pixel pipeline (per-image wrapper models over (y, x, r, g,
+b) pixel matrices; modes 'single', 'none' (seg frozen) and 'multi' (one
+shared seg net)), the image pipeline (``dataset_args['dimension'] ==
+'3d'``: CNNNet or UNet per image on the dense grid, every image padded to
+one (Hmax, Wmax) bucket, the prior on the clean xy grid), and every
+``xytype`` ('xy', 'feat', 'featxy', 'edge', 'edgexy'; the feature ones
+through ``runner/sss_extractor.py``). A device mesh raises
+``NotImplementedError`` naming its ROADMAP item. Every tensor lives on
+``config.device`` (the card unless the config says ``cpu``).
 """
 from __future__ import annotations
 
@@ -41,7 +43,6 @@ from awesome_tpu_torch.serialization.jsonconv import (
 
 logger = logging.getLogger(__name__)
 
-_ITEM_RUNNER = "ROADMAP.md Queue 1 item 7"
 _ITEM_MESH = "parallel/mesh.py, ROADMAP.md Queue 1 item 8"
 
 
@@ -170,20 +171,15 @@ class AwesomeRunner(Runner):
         self._batch = None
         self._dev_batch = None
         self._eval_px = None
+        self._feat_cache: Dict[Any, np.ndarray] = {}
+        self._extractor = None
+        self.image_mode = False
+        self.seg_stateful = False
 
     def _check_supported(self) -> None:
         """Options of the JAX runner this port does not have yet raise here,
         before anything is built."""
         cfg = self.config
-        args = cfg.dataset_args or {}
-        if args.get("dimension") == "3d":
-            raise NotImplementedError(
-                "image mode (dataset_args['dimension'] == '3d': CNNNet/UNet "
-                f"through the runner) is not ported yet ({_ITEM_RUNNER})")
-        if args.get("xytype", "xy") != "xy":
-            raise NotImplementedError(
-                f"xytype {args['xytype']!r} (with runner/sss_extractor.py) "
-                f"is not ported yet ({_ITEM_RUNNER}); only 'xy' is")
         if cfg.mesh_shape is not None:
             raise NotImplementedError(
                 f"mesh_shape: {_ITEM_MESH} is not ported yet; leave "
@@ -239,6 +235,7 @@ class AwesomeRunner(Runner):
     def build_dataset(self):
         cfg = self.config
         args = dict(cfg.dataset_args)
+        self.image_mode = args.get("dimension") == "3d"
         if cfg.dataset_type is None:
             self.samples = self._synthetic_fallback(args)
         elif not self._dataset_paths_exist(args):
@@ -263,23 +260,28 @@ class AwesomeRunner(Runner):
 
     def _seg_args(self, seg_cls, args: Dict[str, Any]) -> Dict[str, Any]:
         """Map reference seg-model args onto the port's models: 'input' ->
-        in_type with the channel count of the 'xy' encoding
-        (`awesome/model/cnn_net.py:18-28`: rgb|xy|rgbxy concat of rgb(3) +
-        the two xy channels)."""
+        in_type with the channel count derived from the dataset's xytype
+        encoding (`awesome/model/cnn_net.py:18-28`: rgb|xy|rgbxy concat of
+        rgb(3) + the encoding channels). The UNet, which always sees
+        concat(image, encoding), gets ``in_chn`` 3 + the encoding's."""
         out = dict(args)
         in_type = out.pop("input", None)
         if in_type is not None:
             out["in_type"] = in_type
+        enc = self.XYTYPE_CHANNELS.get(self.xytype, 2)
         name = getattr(seg_cls, "__name__", "")
         if name in ("CNNNet", "FCNet") and "in_chn" not in out:
-            out.setdefault("in_chn", {"rgb": 3, "xy": 2, "rgbxy": 5}.get(
-                out.get("in_type", "rgbxy"), 5))
+            out.setdefault("in_chn", {"rgb": 3, "xy": enc, "rgbxy": 3 + enc
+                                      }.get(out.get("in_type", "rgbxy"),
+                                            3 + enc))
             # use_binary_classification (`awesome/run/awesome_runner.py:64`):
             # binary -> ONE sigmoid channel, else one channel per class
             out.setdefault("out_chn",
                            1 if self.config.use_binary_classification else 2)
+        if name == "UNet":
+            out.setdefault("in_chn", 3 + enc)
         if name == "Net":
-            out.setdefault("in_features", 5)
+            out.setdefault("in_features", 3 + enc)
         valid = set(init_names(seg_cls))
         return {k: v for k, v in out.items() if k in valid}
 
@@ -299,19 +301,28 @@ class AwesomeRunner(Runner):
         from awesome_tpu_torch.nn.wrapper import WrapperModule
 
         cfg = self.config
+        if self.image_mode and cfg.segmentation_training_mode == "multi":
+            raise ValueError(
+                "segmentation_training_mode 'multi' (one shared seg net) runs "
+                "the pixel pipeline only; image mode trains a seg net per "
+                "image ('single' or 'none')")
         if cfg.segmentation_model_type:
             seg_cls = dynamic_import(cfg.segmentation_model_type)
             seg = self._construct(
                 seg_cls, self._seg_args(seg_cls, cfg.segmentation_model_args))
-            if seg_cls.__name__ == "FCNet":
+            if not self.image_mode and seg_cls.__name__ == "FCNet":
                 # FCNet in the 2d pipeline: adapt the (image, grid)
                 # signature to pixel matrices (reference pixelize flow)
                 seg = PixelMatrixSeg(seg)
-            elif seg_cls.__name__ in ("CNNNet", "UNet"):
-                raise NotImplementedError(
-                    f"{seg_cls.__name__} is convolutional: it needs image "
-                    "mode (dimension '3d'), not ported yet "
-                    f"({_ITEM_RUNNER})")
+            elif not self.image_mode and seg_cls.__name__ in ("CNNNet",
+                                                              "UNet"):
+                raise ValueError(
+                    f"{seg_cls.__name__} is convolutional; use dimension "
+                    "'3d' (image mode) in dataset_args")
+            # the UNet's batch norm: its per-image params are a (params,
+            # state) pair, the state updated by the training forward
+            self.seg_stateful = self.image_mode and (
+                seg_cls.__name__ == "UNet")
         else:
             seg = self._construct(
                 Net, self._seg_args(Net, cfg.segmentation_model_args or {}))
@@ -329,8 +340,9 @@ class AwesomeRunner(Runner):
         self.wrapper = wrapper_cls(
             segmentation_module=seg,
             prior_module=prior,
-            input_mode="pixel",
-            prior_arg_mode="xy_c_preattached",
+            input_mode="image" if self.image_mode else "pixel",
+            prior_arg_mode=("param_clean_grid" if self.image_mode
+                            else "xy_c_preattached"),
             use_segmentation_output_inversion=(
                 cfg.use_segmentation_output_inversion),
             segmentation_module_gets_targets=(
@@ -340,31 +352,25 @@ class AwesomeRunner(Runner):
         return self.wrapper
 
     def build(self) -> None:
-        from awesome_tpu_torch.data.batching import stack_padded
         from awesome_tpu_torch.data.split import split_indices
 
         self.build_dataset()
+        shapes = [s.shape for s in self.samples]
+        if self.image_mode:
+            # pad-to-bucket: mixed sizes share one (Hmax, Wmax) dense grid;
+            # padded pixels carry weight 0 everywhere (the reference is
+            # shape-agnostic per image,
+            # `awesome/dataset/convexity_segmentation_dataset.py:178-246`)
+            self._shape = (max(h for h, _ in shapes),
+                           max(w for _, w in shapes))
+        else:
+            self._shape = shapes[0]
         self.build_models()
 
-        # per-image pixel tensors, bucket-padded
-        px_list, gt_list, scr_counts = [], [], []
-        for s in self.samples:
-            px, gt = s.pixels(self.config.scribble_percentage,
-                              seed=self.config.seed)
-            gt_full = np.zeros((px.shape[0], 1), np.float32)
-            gt_full[: gt.shape[0]] = gt
-            px_list.append(px)
-            gt_list.append(gt_full)
-            scr_counts.append(s.important_pixels()[0].shape[0])
-        px, valid = stack_padded(px_list)
-        gt, _ = stack_padded(gt_list)
-        scr_mask = np.zeros_like(valid)
-        rnd_mask = np.zeros_like(valid)
-        for i, c in enumerate(scr_counts):
-            scr_mask[i, :c] = True
-            rnd_mask[i] = valid[i] & ~scr_mask[i]
-        self._batch = {"px": px, "gt": gt, "scr_mask": scr_mask,
-                       "rnd_mask": rnd_mask, "valid": valid}
+        if self.image_mode:
+            self._batch = self._image_batch()
+        else:
+            self._batch = self._pixel_batch()
         self._dev_batch = {k: torch.as_tensor(v, device=self.device)
                            for k, v in self._batch.items()}
 
@@ -412,6 +418,147 @@ class AwesomeRunner(Runner):
             primary_metric="Loss",
             primary_mode="val" if self.val_indices else "train")
 
+    def _pixel_batch(self) -> Dict[str, np.ndarray]:
+        """Per-image pixel tensors (encoded), bucket-padded."""
+        from awesome_tpu_torch.data.batching import stack_padded
+
+        px_list, gt_list, scr_counts = [], [], []
+        for s in self.samples:
+            px, gt = s.pixels(self.config.scribble_percentage,
+                              seed=self.config.seed)
+            px = self._encode_px(s, px)
+            gt_full = np.zeros((px.shape[0], 1), np.float32)
+            gt_full[: gt.shape[0]] = gt
+            px_list.append(px)
+            gt_list.append(gt_full)
+            scr_counts.append(s.important_pixels()[0].shape[0])
+        px, valid = stack_padded(px_list)
+        gt, _ = stack_padded(gt_list)
+        scr_mask = np.zeros_like(valid)
+        rnd_mask = np.zeros_like(valid)
+        for i, c in enumerate(scr_counts):
+            scr_mask[i, :c] = True
+            rnd_mask[i] = valid[i] & ~scr_mask[i]
+        return {"px": px, "gt": gt, "scr_mask": scr_mask,
+                "rnd_mask": rnd_mask, "valid": valid}
+
+    def _image_batch(self) -> Dict[str, np.ndarray]:
+        """Dense full-grid tensors in the padded-grid layout: the conv seg
+        net sees whole images; the loss is masked to scribbles, the extra
+        penalty to the unlabeled rest (AwesomeImageLoss semantics,
+        `awesome/measures/awesome_image_loss.py:9-52`), and padding to
+        neither. gt encodes fg as 0; unlabeled and padded pixels read 1."""
+        px = self._eval_pixels()  # (B, N=Hp*Wp, C)
+        b, n = px.shape[:2]
+        hp, wp = self._shape
+        gt = np.ones((b, n, 1), np.float32)
+        scr_mask = np.zeros((b, n), bool)
+        valid = np.zeros((b, n), bool)
+        for i, s in enumerate(self.samples):
+            h, w = s.shape
+            v = np.zeros((hp, wp), bool)
+            v[:h, :w] = True
+            fg = np.zeros((hp, wp), bool)
+            fg[:h, :w] = s.fg_mask
+            bg = np.zeros((hp, wp), bool)
+            bg[:h, :w] = s.bg_mask
+            fg, bg, v = fg.reshape(-1), bg.reshape(-1), v.reshape(-1)
+            gt[i, fg, 0] = 0.0  # fg encoded as 0
+            gt[i, bg, 0] = 1.0
+            scr_mask[i] = fg | bg
+            valid[i] = v
+        return {"px": px, "gt": gt, "scr_mask": scr_mask,
+                "rnd_mask": valid & ~scr_mask, "valid": valid}
+
+    # --- xytype feature encodings -------------------------------------------
+    XYTYPE_CHANNELS = {"xy": 2, "feat": 2, "featxy": 4, "edge": 1,
+                       "edgexy": 3}
+
+    @property
+    def xytype(self) -> str:
+        return self.config.dataset_args.get("xytype", "xy")
+
+    def _encoding_map(self, s) -> Optional[np.ndarray]:
+        """Per-image (H, W, E) encoding replacing/extending the xy channels
+        per the dataset's ``xytype`` (`awesome/dataset/image_sample.py:111-127`
+        _get_xy): 'feat' = 2-ch semantic features, 'featxy' = (xy, feat),
+        'edge' = Sobel edge map, 'edgexy' = (xy, edge); None for plain
+        'xy'. The features come from ``feature_dir`` embedmaps when there
+        are some, else from the SSS proxy (``dataset_args['sss_proxy']``,
+        default the host spectral-matting proxy; 'spectral_device' solves
+        on the runner's device), cached per image."""
+        from awesome_tpu_torch.data.image_sample import (
+            edge_map,
+            load_semantic_features,
+        )
+
+        xytype = self.xytype
+        if xytype == "xy":
+            return None
+        h, w = s.shape
+        yy, xx = np.mgrid[0:h, 0:w]
+        xy = np.stack([yy / h - 0.5, xx / w - 0.5], -1).astype(np.float32)
+        if xytype in ("feat", "featxy"):
+            feat = None
+            feature_dir = self.config.dataset_args.get("feature_dir")
+            if feature_dir and os.path.isdir(feature_dir):
+                feat = load_semantic_features(
+                    feature_dir, f"img_{getattr(s, 'index', 0)}")
+            if feat is None:
+                key = getattr(s, "index", None)
+                if key is not None and key in self._feat_cache:
+                    feat = self._feat_cache[key]
+                else:
+                    feat = self._proxy_features(s.image, feature_dir)
+                    if key is not None:
+                        self._feat_cache[key] = feat
+            return feat if xytype == "feat" else np.concatenate(
+                [xy, feat], -1)
+        if xytype in ("edge", "edgexy"):
+            e = edge_map(s.image)[..., None].astype(np.float32)
+            return e if xytype == "edge" else np.concatenate([xy, e], -1)
+        raise ValueError(f"Unknown xytype {xytype}")
+
+    def _proxy_features(self, image, feature_dir) -> np.ndarray:
+        """The SSS proxy's features of one image, by one extractor per
+        runner (its ``fallbacks`` count the images too small for the
+        device solve)."""
+        from awesome_tpu_torch.runner.sss_extractor import (
+            SemanticSoftSegmentationExtractor,
+        )
+
+        proxy = self.config.dataset_args.get("sss_proxy", "spectral")
+        if self._extractor is None:
+            self._extractor = SemanticSoftSegmentationExtractor(
+                feature_dir or "/nonexistent", proxy=proxy,
+                device=self.device)
+        ex = self._extractor
+        if proxy == "spectral_device":
+            # a failure of the device solve is the run's failure
+            return ex.proxy_features(image)
+        # the host proxies degrade internally (host spectral -> pyramid
+        # PCA); this guard covers the pyramid path itself dying
+        try:
+            return ex.proxy_features(image)
+        except Exception as e:  # noqa: BLE001
+            from awesome_tpu_torch.data.image_sample import semantic_features
+
+            logger.warning("every sss proxy failed (%r); 'feat' falls back "
+                           "to RGB-PCA for this image", e)
+            return semantic_features(image)
+
+    def _encode_px(self, s, px: np.ndarray) -> np.ndarray:
+        """Rewrite a (N, 5)=(y, x, r, g, b) pixel matrix to (N, E+3) with
+        the xytype encoding channels in front (the prior reads [0:2])."""
+        enc = self._encoding_map(s)
+        if enc is None:
+            return px
+        h, w = s.shape
+        iy = np.clip(np.round((px[:, 0] + 0.5) * h), 0, h - 1).astype(int)
+        ix = np.clip(np.round((px[:, 1] + 0.5) * w), 0, w - 1).astype(int)
+        return np.concatenate([enc[iy, ix], px[:, 2:5]],
+                              axis=-1).astype(np.float32)
+
     def _stacked_axes(self) -> Dict[str, int]:
         """Leading image axes of each top-level subtree of the params."""
         shared = self.config.segmentation_training_mode == "multi"
@@ -419,8 +566,40 @@ class AwesomeRunner(Runner):
 
     # --- forward dispatch ---------------------------------------------------
     def _forward_one(self, params, px, evaluate_prior: bool = True):
-        """Per-image forward on a pixel matrix (N, 5)=(y,x,r,g,b) -> (N, C)."""
-        return self.wrapper.apply(params, px, evaluate_prior=evaluate_prior)
+        """Per-image forward on a pixel matrix (N, 5)=(y,x,r,g,b) -> (N, C).
+
+        Pixel mode delegates to the wrapper; image mode reshapes to NHWC
+        for the seg net and queries the prior on the clean xy grid
+        (`awesome/model/wrapper_module.py:157-228`,
+        ``prior_arg_mode='param_clean_grid'``). A UNet runs on its
+        running batch-norm stats here (eval)."""
+        if not self.image_mode:
+            return self.wrapper.apply(params, px,
+                                      evaluate_prior=evaluate_prior)
+        seg_params, seg_state = params["seg"] if self.seg_stateful \
+            else (params["seg"], None)
+        return self._image_forward(seg_params, seg_state, params.get("prior"),
+                                   px, evaluate_prior)[0]
+
+    def _image_forward(self, seg_params, seg_state, prior_params, px,
+                       evaluate_prior: bool = True, train: bool = False):
+        """Image-mode forward: ``(out (N, C), new seg state)``; the state
+        is None for a stateless seg net and moves only with ``train``."""
+        h, w = self._shape
+        img = px[:, -3:].reshape(1, h, w, 3)
+        grid_img = px[:, :-3].reshape(1, h, w, -1)
+        seg_mod = self.wrapper.segmentation_module
+        if self.seg_stateful:
+            seg, new_state = seg_mod.apply(seg_params, seg_state, img,
+                                           grid_img, train=train)
+        else:
+            seg, new_state = seg_mod.apply(seg_params, img, grid_img), None
+        seg = self.wrapper.process_segmentation_output(seg).reshape(-1, 1)
+        if self.wrapper.prior_module is None or not evaluate_prior:
+            return seg, new_state
+        prior = self.wrapper.prior_module.apply(prior_params, px[:, 0:2])
+        prior = self.wrapper.process_prior_output(prior).reshape(-1, 1)
+        return torch.cat([seg, prior], dim=-1), new_state
 
     def _gp_weights(self):
         """Gradient-penalty weights from the configured loss criterion
@@ -434,20 +613,32 @@ class AwesomeRunner(Runner):
         return 0.0, 0.0
 
     def _make_loss_impl(self):
-        """Custom per-image loss when a gradient penalty is configured;
-        None -> the pixel engine's default masked AwesomeLoss."""
+        """Custom per-image loss when image mode or a gradient penalty is
+        configured; None -> the pixel engine's default masked AwesomeLoss.
+        With a stateful seg net (the UNet) the loss is ``loss(params,
+        seg_state, px, ...) -> (loss, new_seg_state)``, the forward in
+        training mode (batch statistics)."""
         from awesome_tpu_torch.fit.pixel_trainer import masked_awesome_loss
         from awesome_tpu_torch.measures.losses import bce
 
         xyw, rgbw = self._gp_weights()
-        if not (xyw or rgbw):
+        if not self.image_mode and not (xyw or rgbw):
             return None
         alpha = self.config.loss_args.get("alpha", 1.0)
         pen_base, pen_align = self._penalty_scales()
         has_prior = self.wrapper.prior_module is not None
+        train_seg = self.config.segmentation_training_mode != "none"
 
-        def loss_impl(params, px, gt, smask, rmask, extra_penalty):
-            out = self._forward_one(params, px)
+        def forward(params, seg_state, px, evaluate_prior=True):
+            if self.seg_stateful:
+                return self._image_forward(params["seg"], seg_state,
+                                           params.get("prior"), px,
+                                           evaluate_prior, train=train_seg)
+            return self._forward_one(params, px, evaluate_prior), None
+
+        def loss_and_state(params, seg_state, px, gt, smask, rmask,
+                           extra_penalty):
+            out, new_state = forward(params, seg_state, px)
             if has_prior:
                 loss = masked_awesome_loss(
                     out, gt, smask, rmask, alpha, extra_penalty,
@@ -456,15 +647,24 @@ class AwesomeRunner(Runner):
                 sw = smask.to(out.dtype)[:, None]
                 raw = bce(out[:, 0:1], gt, reduction="none")
                 loss = (raw * sw).sum() / torch.clamp_min(sw.sum(), 1.0)
-            # d(seg)/d(input-channel-groups); px layout (y,x,r,g,b); the
-            # seg column alone (the prior does not reach it)
-            g = torch.func.grad(lambda p: self._forward_one(
-                params, p, evaluate_prior=False)[:, 0:1].sum())(px)
-            if xyw:
-                loss = loss + xyw * torch.mean(g[:, 0:2] ** 2)
-            if rgbw:
-                loss = loss + rgbw * torch.mean(g[:, 2:5] ** 2)
-            return loss
+            if xyw or rgbw:
+                # d(seg)/d(input-channel-groups); px layout (y,x,r,g,b);
+                # the seg column alone (the prior does not reach it)
+                g = torch.func.grad(lambda p: forward(
+                    params, seg_state, p, evaluate_prior=False
+                )[0][:, 0:1].sum())(px)
+                if xyw:
+                    loss = loss + xyw * torch.mean(g[:, 0:2] ** 2)
+                if rgbw:
+                    loss = loss + rgbw * torch.mean(g[:, 2:5] ** 2)
+            return loss, new_state
+
+        if self.seg_stateful:
+            return loss_and_state
+
+        def loss_impl(params, px, gt, smask, rmask, extra_penalty):
+            return loss_and_state(params, None, px, gt, smask, rmask,
+                                  extra_penalty)[0]
 
         return loss_impl
 
@@ -736,9 +936,11 @@ class AwesomeRunner(Runner):
             segment = make_shared_pixel_segment_fn(self.wrapper, tcfg,
                                                    seg_len)
         else:
-            state = pixel_train_init(self.wrapper, self.stacked_params, tcfg)
+            state = pixel_train_init(self.wrapper, self.stacked_params, tcfg,
+                                     stateful_seg=self.seg_stateful)
             segment = make_pixel_segment_fn(
-                self.wrapper, tcfg, seg_len, loss_impl=self._make_loss_impl())
+                self.wrapper, tcfg, seg_len, loss_impl=self._make_loss_impl(),
+                stateful_seg=self.seg_stateful)
         kind = "shared" if shared_mode else "pixel"
         start_seg = 0
         start_epoch = 0
@@ -967,24 +1169,44 @@ class AwesomeRunner(Runner):
                          else None))
 
     # --- eval ------------------------------------------------------------
-    def _dense_px(self, s) -> np.ndarray:
-        """Dense pixel matrix of one image, layout (y, x, r, g, b)."""
+    def _dense_px(self, s, pad_shape=None) -> np.ndarray:
+        """Dense encoded pixel matrix of one image, layout (y, x, r, g, b)
+        with the xytype encoding applied. ``pad_shape`` (Hp, Wp) emits the
+        PADDED-grid layout (the image at [:h, :w], zero rgb elsewhere; xy
+        keeps the image's own normalization)."""
         h, w = s.shape
-        yy, xx = np.mgrid[0:h, 0:w]
+        if pad_shape is None:
+            yy, xx = np.mgrid[0:h, 0:w]
+            rgb = s.image.reshape(-1, 3)
+        else:
+            hp, wp = pad_shape
+            yy, xx = np.mgrid[0:hp, 0:wp]
+            rgb = np.zeros((hp, wp, 3), np.float32)
+            rgb[:h, :w] = s.image
+            rgb = rgb.reshape(-1, 3)
         norm = np.stack([yy / h - 0.5, xx / w - 0.5], -1).reshape(-1, 2)
-        return np.concatenate([norm, s.image.reshape(-1, 3)],
-                              axis=-1).astype(np.float32)
+        return self._encode_px(
+            s, np.concatenate([norm, rgb], axis=-1).astype(np.float32))
 
     def _eval_pixels(self) -> np.ndarray:
         """Dense full-grid pixel matrices for every image, padded to a
-        shared bucket: (B, Nmax, 5). Each image's h*w rows come first, zero
-        rows trail (so ``out[i, :h*w].reshape(h, w)`` is exact)."""
+        shared bucket: (B, Nmax, C), layout (y, x, r, g, b).
+
+        Pixel mode: each image's h*w rows come first, zero rows trail (so
+        ``out[i, :h*w].reshape(h, w)`` is exact). Image mode: the
+        PADDED-grid layout of (Hmax, Wmax), so the conv seg net sees one
+        shape; crop ``[:h, :w]`` after the reshape."""
         if self._eval_px is None:
-            mats = [self._dense_px(s) for s in self.samples]
-            n_max = max(m.shape[0] for m in mats)
-            px = np.zeros((len(mats), n_max, mats[0].shape[1]), np.float32)
-            for i, m in enumerate(mats):
-                px[i, : m.shape[0]] = m
+            if self.image_mode:
+                px = np.stack([self._dense_px(s, pad_shape=self._shape)
+                               for s in self.samples]).astype(np.float32)
+            else:
+                mats = [self._dense_px(s) for s in self.samples]
+                n_max = max(m.shape[0] for m in mats)
+                px = np.zeros((len(mats), n_max, mats[0].shape[1]),
+                              np.float32)
+                for i, m in enumerate(mats):
+                    px[i, : m.shape[0]] = m
             self._eval_px = px
         return self._eval_px
 
@@ -1008,8 +1230,13 @@ class AwesomeRunner(Runner):
         return out.cpu().numpy()
 
     def _crop_output(self, outputs: np.ndarray, i: int) -> np.ndarray:
-        """Image i's (h*w, C) rows of the stacked eval output."""
+        """Image i's (h*w, C) rows of the stacked eval output, undoing the
+        pad-to-bucket layout (trailing rows in pixel mode, the 2-D padded
+        grid in image mode)."""
         h, w = self.samples[i].shape
+        if self.image_mode:
+            hp, wp = self._shape
+            return outputs[i].reshape(hp, wp, -1)[:h, :w].reshape(h * w, -1)
         return outputs[i, : h * w]
 
     def evaluate(self, compute_crf: Optional[bool] = None,
@@ -1111,7 +1338,9 @@ class AwesomeRunner(Runner):
         outputs = self._forward_all()
         pts_list, target_list, valid = [], [], []
         for i, s in enumerate(self.samples):
-            # per-image dense grid at the image's OWN shape
+            # per-image dense grid at the image's OWN shape; prior query
+            # points = the encoding's leading channels (xy, or the feature
+            # space for xytype 'feat')
             px = self._dense_px(s)
             seg = self._crop_output(outputs, i)[:, 0:1]
             target = (seg >= 0.5).astype(np.float32)

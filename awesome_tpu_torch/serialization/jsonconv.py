@@ -36,6 +36,8 @@ _RULES: List["Rule"] = []
 
 # module of the JAX package -> its counterpart in this one
 PORT_MODULES = {
+    "awesome_tpu.analytics.result_model":
+        "awesome_tpu_torch.analytics.result_model",
     "awesome_tpu.core.grids": "awesome_tpu_torch.core.grids",
     "awesome_tpu.core.transforms": "awesome_tpu_torch.core.transforms",
     "awesome_tpu.core.tree": "awesome_tpu_torch.core.tree",
@@ -83,13 +85,17 @@ PORT_MODULES = {
     "awesome_tpu.ops.pallas_flagship": "awesome_tpu_torch.ops.flagship",
     "awesome_tpu.ops.pallas_mlp": "awesome_tpu_torch.ops.mlp",
     "awesome_tpu.ops.permutohedral": "awesome_tpu_torch.ops.permutohedral",
+    "awesome_tpu.ops.spectral": "awesome_tpu_torch.ops.spectral",
     "awesome_tpu.runner.config": "awesome_tpu_torch.runner.config",
     "awesome_tpu.runner.fbms_runner": "awesome_tpu_torch.runner.fbms_runner",
     "awesome_tpu.runner.functions": "awesome_tpu_torch.runner.functions",
     "awesome_tpu.runner.handles": "awesome_tpu_torch.runner.handles",
+    "awesome_tpu.runner.multi": "awesome_tpu_torch.runner.multi",
     "awesome_tpu.runner.reference_import":
         "awesome_tpu_torch.runner.reference_import",
     "awesome_tpu.runner.runner": "awesome_tpu_torch.runner.runner",
+    "awesome_tpu.runner.sss_extractor":
+        "awesome_tpu_torch.runner.sss_extractor",
     "awesome_tpu.serialization.jsonconv":
         "awesome_tpu_torch.serialization.jsonconv",
     "awesome_tpu.utils.tensorboard": "awesome_tpu_torch.utils.tensorboard",

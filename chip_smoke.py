@@ -137,15 +137,39 @@ Phases, each printing its own line (any failure exits nonzero):
     under ``torch.use_deterministic_algorithms(True)``); then ``dense_crf``
     on the card against ``dense_crf_exact`` (the g++-built permutohedral
     lattice) on a clean 40x40 scene, labels agreeing above 0.97;
-19. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
+19. the runner's image mode (``image_runner_path``): the paper table's
+    CNNNet cell (``dimension: 3d``, ``CNNNet`` at its default widths, Adam
+    lr 1e-3) with ``FullyFusedConvexNextNet(ConvexNextNet(64, 1))`` on the
+    runner phase's 8 images padded to one 240x320 bucket, 100 epochs, 100
+    pretrain and refit steps: K4 and K5 once each per epoch for all
+    images, a falling loss, metrics in [0, 1], ms/epoch, the idle share of
+    a 20-epoch window, peak memory; the window under
+    ``torch.use_deterministic_algorithms(True)`` equal to it bitwise; one
+    epoch's grads by ``vmap`` (grouped convs) against a loop over the
+    images; a 'featxy' epoch beside the 'xy' one; then a full-width UNet
+    per image (2 images, 5 epochs, its batch-norm state per image);
+20. the device spectral solve (``spectral_path``): the 'spectral_device'
+    SSS proxy on a 480x640 image (solved at 120x160) and on the
+    two-region test scene: ms per call, the device's busy ms, bitwise
+    repeats, the nontrivial eigenvectors at cos >= 0.999 (largest
+    principal angle) from float64 ``eigsh`` on the same stencil, the host
+    proxy's ms, no fallback to the host;
+21. the paper table (``paper_table_path``): ``python -m
+    awesome_tpu_torch.scripts.run_paper_table`` in a subprocess on 4 cells
+    (CNNNet xy with the prior, CNNNet featxy without, Net feat and FCNet
+    featxy with) with the 'spectral_device' proxy, 12 images of 64x64, 400
+    epochs, the script's global floors: exit 0, the table written, each
+    cell's MIOUs and seconds;
+22. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
     K1/K2) its time at its path's shape, its launches on that path, the
     steps, launches per step, its bound on this card, the plain version's
     time, and its error against the plain version at that shape; K2 also
     at the multi-object paths' shapes (G = 16 at 64x64, G = 8 at 480x640),
     K4/K5 at the runner's and at the convex-diffeomorphism runner's (G =
-    8, per-image points), and K1 at the FBMS pretrain's (480x640, G = 1),
+    8, per-image points), at the image-mode runner's (width 64, G = 8,
+    per-image points), and K1 at the FBMS pretrain's (480x640, G = 1),
     each printed as a ``kernel_vs_plain`` line too;
-20. the card's name and power limit, and last the result line
+23. the card's name and power limit, and last the result line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Phases 5-8 also profile a 20-step window of their fit with
@@ -2152,6 +2176,413 @@ ICNN_CONFIGS = (
 )
 
 
+# The image-mode runner phase: the paper table's CNNNet cell (image mode,
+# the CNNNet's default widths, Adam lr 1e-3, no extra penalty) with the
+# fused prior, on the runner phase's 8 mixed shapes padded to one
+# (240, 320) bucket; cut from 3000 epochs and 2000 pretrain/refit steps
+IMAGE_EPOCHS = 100
+IMAGE_PRETRAIN = 100
+IMAGE_REFIT = 100
+UNET_SHAPES = ((160, 224), (192, 256))
+UNET_EPOCHS = 5
+# the paper-table phase: 4 cells of the grid at the script's n and size,
+# the epochs cut from 800
+PAPER_TABLE_CELLS = ("cnnnet+xy+prior", "cnnnet+featxy+noprior",
+                     "net+feat+prior", "fcnet+featxy+prior")
+PAPER_TABLE_EPOCHS = 400
+
+
+def image_runner_config(folder: str, device, **kw):
+    """The paper table's CNNNet cell (``dimension: 3d``, ``CNNNet`` at its
+    default width and depth, ``in_chn`` from the xytype; Adam lr 1e-3; no
+    extra penalty) with the prior ``FullyFusedConvexNextNet(ConvexNextNet(
+    64, 1))`` on the ``RUNNER_SHAPES`` images; metrics and validation every
+    50 epochs; pretrain with the 0.5 IoU gate and one retry."""
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.runner.config import AwesomeConfig
+
+    base = dict(
+        name_experiment="smoke_image", device=device,
+        dataset_args={"shapes": [list(s) for s in RUNNER_SHAPES],
+                      "dimension": "3d", "xytype": "xy"},
+        segmentation_model_type="awesome_tpu_torch.nn.seg.CNNNet",
+        segmentation_model_args={},
+        prior_model_type="awesome_tpu_torch.ops.mlp.FullyFusedConvexNextNet",
+        prior_model_args={"base": ConvexNextNet(n_hidden=64,
+                                                n_hidden_layers=1,
+                                                device=device)},
+        optimizer_type="adam", optimizer_args={"lr": 1e-3},
+        use_extra_penalty_hook=False, num_epochs=IMAGE_EPOCHS,
+        compute_metrics_during_training_nth_epoch=50,
+        validation_each_nth_epoch=50,
+        pretrain_args={"num_epochs": IMAGE_PRETRAIN,
+                       "proper_prior_fit_retrys": 1},
+        runs_path=folder, output_folder=folder, seed=0)
+    base.update(kw)
+    return AwesomeConfig(**base)
+
+
+def _image_window(runner, params, epochs: int):
+    """``epochs`` training epochs of the runner's segment engine from
+    ``params``: ``(run, state)``, ``run()`` returning the segment's
+    output."""
+    from awesome_tpu_torch.fit.pixel_trainer import (
+        make_pixel_segment_fn,
+        pixel_train_init,
+    )
+
+    tcfg = runner._train_cfg(epochs)
+    segment = make_pixel_segment_fn(runner.wrapper, tcfg, epochs,
+                                    loss_impl=runner._make_loss_impl(),
+                                    stateful_seg=runner.seg_stateful)
+    state = pixel_train_init(runner.wrapper, params, tcfg,
+                             stateful_seg=runner.seg_stateful)
+    b = runner._dev_batch
+    batch = (b["px"], b["gt"], b["scr_mask"], b["rnd_mask"])
+    return lambda: segment(state, *batch)
+
+
+def _timed_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def image_runner_path(device, root: str) -> dict:
+    """The runner's image mode as ``python -m awesome_tpu_torch.run``
+    drives it (build, pretrain, train, the dense refit, evaluate,
+    save_results) with :func:`image_runner_config`: K4 and K5 once each
+    per training epoch for all 8 images (K4 once more per evaluation);
+    a falling loss and metrics in [0, 1]; ms/epoch, the idle share of a
+    20-epoch window and peak memory; the window again under
+    ``torch.use_deterministic_algorithms(True)`` (the per-image conv
+    weights under ``vmap`` make grouped convs), equal to it in every bit;
+    one epoch's grads as the ``vmap`` computes them against a loop over
+    the images; a 'featxy' runner's epoch beside the 'xy' one; then a
+    full-width UNet in image mode (2 images, ``UNET_EPOCHS`` epochs)."""
+    import shutil
+
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.runner.runner import AwesomeRunner
+
+    shutil.rmtree(root, ignore_errors=True)
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    runner = AwesomeRunner(image_runner_config(root, device))
+    runner.build()
+    n_pad = int(runner._batch["px"].shape[1])
+    t0 = time.perf_counter()
+    pre = runner.pretrain()
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    _, _, k4_pre, k5_pre, _ = counts()
+    evals0 = _evals(runner)
+    t0 = time.perf_counter()
+    res = runner.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    _, _, k4_tr, k5_tr, _ = counts()
+    k4_tr, k5_tr = k4_tr - k4_pre, k5_tr - k5_pre
+    evals = _evals(runner) - evals0
+    if k5_tr != IMAGE_EPOCHS or k4_tr != IMAGE_EPOCHS + evals:
+        raise AssertionError(f"image-mode runner: K4 {k4_tr}, K5 {k5_tr} "
+                             f"launches in {IMAGE_EPOCHS} epochs and "
+                             f"{evals} evaluations")
+    hist = res["loss_hist"]
+    check_hist(hist.mean(axis=0), "the image-mode runner's training")
+    _in_unit(res["final_metrics"], "the image-mode runner")
+    trained = T.tree_map(torch.clone, runner.stacked_params)
+    t0 = time.perf_counter()
+    refit = runner.sequential_prior_fit(num_steps=IMAGE_REFIT)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    metrics = runner.evaluate()
+    _in_unit(metrics, "the image-mode runner after the refit")
+    runner.save_results()
+    peak = torch.cuda.max_memory_allocated()
+
+    # a 20-epoch window from the trained state: launches and idle share
+    window = _image_window(runner, trained, PROF_STEPS)
+    window()
+    torch.cuda.synchronize()
+    _, _, w4, w5, _ = counts()
+    t0 = time.perf_counter()
+    _, aux = window()
+    torch.cuda.synchronize()
+    ms_epoch = 1e3 * (time.perf_counter() - t0) / PROF_STEPS
+    _, _, w4b, w5b, _ = counts()
+    per_epoch = {"K4": (w4b - w4) / PROF_STEPS, "K5": (w5b - w5) / PROF_STEPS}
+    if per_epoch != {"K4": 1.0, "K5": 1.0}:
+        raise AssertionError(f"image-mode runner window: {per_epoch} "
+                             "launches per epoch")
+    profile = device_profile(window, PROF_STEPS, ms_epoch)
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, aux_det = window()
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not torch.equal(aux["loss_hist"], aux_det["loss_hist"]):
+        raise AssertionError("the image-mode window differs under "
+                             "torch.use_deterministic_algorithms(True)")
+
+    # one epoch's grads: the vmap (grouped convs) against a per-image loop
+    loss_impl = runner._make_loss_impl()
+    b = runner._dev_batch
+    args = (b["px"], b["gt"], b["scr_mask"], b["rnd_mask"])
+    extra = torch.zeros((len(RUNNER_SHAPES),), dtype=torch.bool,
+                        device=device)
+    vgv = torch.func.vmap(torch.func.grad_and_value(loss_impl))
+    gv = torch.func.grad_and_value(loss_impl)
+    vmap_ms = _timed_ms(lambda: vgv(trained, *args, extra), 10)
+    loop_ms = _timed_ms(lambda: [
+        gv(T.tree_select(trained, i), *(a[i] for a in args), extra[i])
+        for i in range(len(RUNNER_SHAPES))], 10)
+
+    # the 'featxy' encoding (host spectral proxy) beside 'xy'
+    t0 = time.perf_counter()
+    feat_runner = AwesomeRunner(image_runner_config(
+        os.path.join(root, "featxy"), device, dataset_args={
+            "shapes": [list(s) for s in RUNNER_SHAPES], "dimension": "3d",
+            "xytype": "featxy"}))
+    feat_runner.build()
+    feat_build_s = time.perf_counter() - t0
+    feat_window = _image_window(feat_runner, feat_runner.stacked_params,
+                                PROF_STEPS)
+    feat_ms = _timed_ms(feat_window, 1) / PROF_STEPS
+    unet = unet_image_path(device, os.path.join(root, "unet"))
+    torch.cuda.synchronize()
+    return {
+        "phase": "image_runner", "images": len(RUNNER_SHAPES),
+        "bucket": list(runner._shape), "padded_points": n_pad,
+        "cuts": {"epochs": [IMAGE_EPOCHS, 3000],
+                 "pretrain_steps": [IMAGE_PRETRAIN, 2000],
+                 "refit_steps": [IMAGE_REFIT, 2000]},
+        "pretrain_s": pre_s, "gate_iou": [float(v) for v in pre["gate_iou"]],
+        "train_s": train_s,
+        "train_ms_per_epoch_incl_evals": 1e3 * train_s / IMAGE_EPOCHS,
+        "refit_s": refit_s,
+        "refit_gate_iou": [float(v) for v in refit["gate_iou"]],
+        "ms_per_epoch": ms_epoch, "profile": profile,
+        "deterministic_window_bitwise_equal": True,
+        "grads_ms": {"vmap": vmap_ms, "loop_over_images": loop_ms},
+        "featxy": {"build_s": feat_build_s, "ms_per_epoch": feat_ms,
+                   "xy_ms_per_epoch": ms_epoch},
+        "launches": {"train": {"K4": k4_tr, "K5": k5_tr,
+                               "epochs": IMAGE_EPOCHS, "evaluations": evals},
+                     "per_epoch": per_epoch},
+        "train_loss_first_last": [float(hist.mean(axis=0)[0]),
+                                  float(hist.mean(axis=0)[-1])],
+        "metrics_after_train": res["final_metrics"],
+        "metrics_after_refit": metrics,
+        "peak_memory_gib": peak / 2 ** 30, "unet": unet,
+        "k4": k4_tr, "k5": k5_tr,
+        "seconds": time.perf_counter() - t_all,
+    }
+
+
+def unet_image_path(device, root: str) -> dict:
+    """A full-width UNet per image in image mode (its batch-norm state per
+    image): 2 images, ``UNET_EPOCHS`` epochs, a falling finite loss, ms
+    per epoch and peak memory."""
+    import torch
+
+    from awesome_tpu_torch.runner.runner import AwesomeRunner
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runner = AwesomeRunner(image_runner_config(
+        root, device, segmentation_model_type="awesome_tpu_torch.nn.seg.UNet",
+        dataset_args={"shapes": [list(s) for s in UNET_SHAPES],
+                      "dimension": "3d", "xytype": "xy"},
+        num_epochs=UNET_EPOCHS,
+        compute_metrics_during_training_nth_epoch=None,
+        validation_each_nth_epoch=None,
+        pretrain_args={"num_epochs": 20, "proper_prior_fit_retrys": 0}))
+    runner.build()
+    runner.pretrain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = runner.train()
+    torch.cuda.synchronize()
+    hist = res["loss_hist"]
+    for i, row in enumerate(hist):
+        check_hist(row, f"the image-mode UNet, image {i}")
+    _in_unit(res["final_metrics"], "the image-mode UNet")
+    counts_bn = runner.stacked_params["seg"][1]["inc"]["bn1"]["count"]
+    if counts_bn.tolist() != [UNET_EPOCHS] * len(UNET_SHAPES):
+        raise AssertionError(f"UNet batch-norm updates: {counts_bn}")
+    return {"shapes": [list(s) for s in UNET_SHAPES], "epochs": UNET_EPOCHS,
+            "train_ms_per_epoch_incl_evals":
+                1e3 * (time.perf_counter() - t0) / UNET_EPOCHS,
+            "loss_first_last": [[float(r[0]), float(r[-1])] for r in hist],
+            "final_metrics": res["final_metrics"],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def two_region_image(h: int = 96, w: int = 128, noise: float = 0.03,
+                     seed: int = 0) -> np.ndarray:
+    """The two-region test scene of ``tests/test_sss.py``: an ellipse of
+    one colour on another, with Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w, 3), np.float32)
+    img[...] = [0.2, 0.3, 0.8]
+    yy, xx = np.mgrid[0:h, 0:w]
+    blob = ((yy - h // 2) ** 2 / 900 + (xx - w // 2) ** 2 / 1600) < 1.0
+    img[blob] = [0.8, 0.5, 0.1]
+    img += rng.normal(0, noise, img.shape).astype(np.float32)
+    return np.clip(img, 0, 1)
+
+
+def stencil_csr(stencil: np.ndarray):
+    """The (H, W, 5, 5) stencil operator as a scipy CSR matrix."""
+    from scipy import sparse
+
+    h, w = stencil.shape[:2]
+    idx = np.arange(h * w).reshape(h, w)
+    rows, cols, vals = [], [], []
+    for dy in range(5):
+        for dx in range(5):
+            oy, ox = dy - 2, dx - 2
+            y0, y1 = max(0, -oy), min(h, h - oy)
+            x0, x1 = max(0, -ox), min(w, w - ox)
+            rows.append(idx[y0:y1, x0:x1].ravel())
+            cols.append(idx[y0 + oy:y1 + oy, x0 + ox:x1 + ox].ravel())
+            vals.append(stencil[y0:y1, x0:x1, dy, dx].ravel())
+    return sparse.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                     np.concatenate(cols))),
+                             shape=(h * w, h * w))
+
+
+def _cos_largest_angle(a: np.ndarray, b: np.ndarray) -> float:
+    qa, _ = np.linalg.qr(a)
+    qb, _ = np.linalg.qr(b)
+    return float(np.linalg.svd(qa.T @ qb, compute_uv=False).min())
+
+
+def spectral_path(device) -> dict:
+    """``spectral_soft_segments_device`` (the 'spectral_device' SSS proxy,
+    ``ops/spectral.py``) on a 480x640 synthetic image (downscaled to
+    120x160) and on the two-region test scene: ms per call (the first
+    includes the solver's set-up), the device's busy ms in a second,
+    profiled call, the two calls equal in every bit, the eigensolve's
+    tensors on the card, and the cosine of the largest principal angle between its
+    nontrivial eigenvectors and float64 ``eigsh`` on the same stencil
+    operator (>= 0.999); the host 'spectral' proxy's ms beside it; the
+    extractor's fallbacks to the host, which must be 0."""
+    import torch
+    from scipy import ndimage
+    from scipy.sparse.linalg import eigsh
+    from torch.profiler import ProfilerActivity, profile
+
+    from awesome_tpu_torch.data.synthetic import make_sample
+    from awesome_tpu_torch.ops import spectral as S
+    from awesome_tpu_torch.runner import sss_extractor as X
+
+    out = {"phase": "spectral_device"}
+    ex = X.SemanticSoftSegmentationExtractor(
+        "/nonexistent", proxy="spectral_device", device=device)
+    for name, img in (("480x640", make_sample(0, 480, 640).image),
+                      ("two_region_96x128", two_region_image())):
+        h, w = img.shape[:2]
+        scale = min(1.0, 160 / max(h, w))
+        small = np.clip(ndimage.zoom(img, (scale, scale, 1), order=1),
+                        0.0, 1.0) if scale < 1.0 else img
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = ex.proxy_features(img)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            second = S.spectral_soft_segments_device(img, 2, device=device)
+            torch.cuda.synchronize()
+        if not np.array_equal(first, second):
+            raise AssertionError(f"spectral_device {name}: two calls "
+                                 "differ")
+        busy = sum(float(e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")) / 1e3
+        small_t = torch.as_tensor(np.asarray(small), dtype=torch.float64,
+                                  device=device)
+        stencil = S.matting_stencil(small_t, eps=1e-4)
+        vecs = S.smallest_eigenvectors(stencil, 3, image=small_t)
+        if stencil.device.type != "cuda" or vecs.device.type != "cuda":
+            raise AssertionError(f"the eigensolve ran on {vecs.device}")
+        lap = stencil_csr(stencil.cpu().numpy())
+        n = lap.shape[0]
+        t0 = time.perf_counter()
+        ref = eigsh(lap, k=3, sigma=0, which="LM",
+                    v0=np.full(n, 1 / np.sqrt(n)))[1]
+        eigsh_ms = 1e3 * (time.perf_counter() - t0)
+        cos = _cos_largest_angle(vecs.cpu().numpy().reshape(n, 3)[:, 1:],
+                                 ref[:, 1:])
+        if cos < 0.999:
+            raise AssertionError(f"spectral_device {name}: cos of the "
+                                 f"largest principal angle {cos} < 0.999")
+        t0 = time.perf_counter()
+        X.spectral_soft_segments(img, 2)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        out[name] = {"solve_shape": list(small.shape[:2]),
+                     "ms": ms, "device_busy_ms": busy,
+                     "device_idle_share": max(0.0, 1.0 - busy / ms),
+                     "bitwise_repeat": True,
+                     "cos_largest_angle_vs_eigsh": cos,
+                     "eigsh_float64_ms": eigsh_ms, "host_spectral_ms": host_ms}
+    if ex.fallbacks:
+        raise AssertionError(f"{ex.fallbacks} device solves fell back to "
+                             "the host")
+    out["fallbacks"] = ex.fallbacks
+    return out
+
+
+def paper_table_path(root: str) -> dict:
+    """``python -m awesome_tpu_torch.scripts.run_paper_table`` in a
+    subprocess on 4 cells of the grid (``PAPER_TABLE_CELLS``) with the
+    'spectral_device' proxy, the script's n = 12 and 64x64 and its global
+    floors, the epochs cut to ``PAPER_TABLE_EPOCHS``: exit 0, the table
+    written; each cell's seg and prior MIOU and seconds."""
+    import re
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "awesome_tpu_torch.scripts.run_paper_table",
+         "--out", root, "--epochs", str(PAPER_TABLE_EPOCHS),
+         "--sss-proxy", "spectral_device", "--cells", *PAPER_TABLE_CELLS],
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("the paper table failed:\n"
+                             + proc.stdout[-3000:] + proc.stderr[-3000:])
+    if not os.path.exists(os.path.join(root, "paper_table.md")):
+        raise AssertionError("the paper table wrote no paper_table.md")
+    cells = {}
+    for m in re.finditer(r"^(\S+): MIOU (\S+) prior MIOU (\S+) seconds (\S+)",
+                         proc.stdout, re.M):
+        cells[m.group(1)] = {
+            "seg_miou": float(m.group(2)),
+            "prior_miou": None if m.group(3) == "-" else float(m.group(3)),
+            "seconds": float(m.group(4))}
+    if sorted(cells) != sorted(PAPER_TABLE_CELLS):
+        raise AssertionError(f"paper table cells: {sorted(cells)}")
+    with open(os.path.join(root, "floors.json")) as f:
+        best = json.load(f)["cells"]
+    return {"phase": "paper_table", "cells": cells, "best_selection": best,
+            "epochs": [PAPER_TABLE_EPOCHS, 800], "seconds": seconds}
+
+
 def icnn_inputs(width, layers, c, n, g, per_image, seed, device):
     """An ICNN, its stacked params (G images), their (G, P) rows, points
     (N, C) or (G, N, C), and an upstream grad (G, N)."""
@@ -2578,16 +3009,16 @@ def icnn_bound_ms(spec, n: int, g: int, backward: bool,
 
 
 def icnn_entries(launches4, launches5, steps, reps, device, n=480 * 640,
-                 g=1, per_image=False, tag="", seed=13) -> list:
-    """K4 and K5 at one path's shape (width 130, one hidden layer; the
-    convex main path: N = 480x640, G = 1), on the inputs of ``seed``:
-    time, plain time, bound and error against the plain version. ``tag``
-    follows the kernel's letter in the entry's name."""
+                 g=1, per_image=False, tag="", seed=13, width=130) -> list:
+    """K4 and K5 at one path's shape (``width``, one hidden layer; the
+    convex main path: width 130, N = 480x640, G = 1), on the inputs of
+    ``seed``: time, plain time, bound and error against the plain version.
+    ``tag`` follows the kernel's letter in the entry's name."""
     from awesome_tpu_torch.ops import mlp
 
-    ef, eb = icnn_vs_plain(130, 1, 2, n, g, per_image, seed, device)
-    spec, _, stacked, flat, x, gy = icnn_inputs(130, 1, 2, n, g, per_image,
-                                                seed, device)
+    ef, eb = icnn_vs_plain(width, 1, 2, n, g, per_image, seed, device)
+    spec, _, stacked, flat, x, gy = icnn_inputs(width, 1, 2, n, g,
+                                                per_image, seed, device)
     before = mlp.icnn_forward_cuda.launches, mlp.icnn_backward_cuda.launches
     ms4 = cuda_time_ms(lambda: mlp.icnn_forward_cuda(spec, flat, x), reps)
     ms5 = cuda_time_ms(lambda: mlp.icnn_backward_cuda(spec, flat, x, gy),
@@ -2609,7 +3040,7 @@ def icnn_entries(launches4, launches5, steps, reps, device, n=480 * 640,
             "launches": launches, "steps": steps,
             "launches_per_step": launches / steps, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": {"n": n, "g": g, "width": 130,
+            "library_ms": None, "shape": {"n": n, "g": g, "width": width,
                                           "layers": 1, "points": points},
         })
     return out
@@ -2713,6 +3144,11 @@ def main() -> int:
     cd = runner_convex_diffeo_path(dev, os.path.join("build", "smoke_cd"))
     print(json.dumps(cd), flush=True)
     print(json.dumps(crf_path(dev)), flush=True)
+    img = image_runner_path(dev, os.path.join("build", "smoke_image"))
+    print(json.dumps(img), flush=True)
+    print(json.dumps(spectral_path(dev)), flush=True)
+    print(json.dumps(paper_table_path(
+        os.path.join("build", "smoke_paper_table"))), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
@@ -2757,6 +3193,19 @@ def main() -> int:
                           "max_abs_err": entry["max_abs_err"],
                           "bitwise_repeat": True}), flush=True)
     kernels += cd_kernels
+    img_kernels = icnn_entries(
+        img["k4"], img["k5"], IMAGE_EPOCHS, 50, dev, n=img["padded_points"],
+        g=len(RUNNER_SHAPES), per_image=True,
+        tag=f", G={len(RUNNER_SHAPES)}, image mode, per-image points",
+        seed=23, width=64)
+    for entry in img_kernels:
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel":
+                          entry["name"], "path": "image_runner",
+                          "n": img["padded_points"],
+                          "g": len(RUNNER_SHAPES), "points": "per_image",
+                          "max_abs_err": entry["max_abs_err"],
+                          "bitwise_repeat": True}), flush=True)
+    kernels += img_kernels
     for mo, (h, w), seed, reps in ((mo_small, (64, 64), 15, 50),
                                    (mo_large, (480, 640), 17, 10)):
         entry = kernel_entry(

@@ -265,14 +265,15 @@ def _cli_args(folder):
             "--pretrain-args", "{num_epochs: 10}"]
 
 
-@pytest.mark.parametrize("option, item", [
-    (dict(dataset_args={"dimension": "3d"}), "item 7"),
-    (dict(dataset_args={"xytype": "featxy"}), "item 7"),
-    (dict(mesh_shape=[2, 1]), "item 8"),
-    (dict(segmentation_model_type="awesome_tpu.nn.seg.CNNNet"), "item 7"),
+@pytest.mark.parametrize("option, error, match", [
+    (dict(mesh_shape=[2, 1]), NotImplementedError, "item 8"),
+    (dict(segmentation_model_type="awesome_tpu.nn.seg.CNNNet"), ValueError,
+     "convolutional"),
 ])
-def test_options_left_out_raise(tmp_path, option, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_options_left_out_raise(tmp_path, option, error, match):
+    """A device mesh is not ported yet; CNNNet in pixel mode raises as in
+    the JAX runner (a conv net needs image mode)."""
+    with pytest.raises(error, match=match):
         AwesomeRunner(_port_config(tmp_path, **option)).build()
 
 
