@@ -12,7 +12,7 @@ param trees are packed once before and unpacked once after.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -157,3 +157,10 @@ def make_grouped_fused_fit_fn(model, cfg: FitConfig, group: int,
         return eng.unpack(flat), {"loss_hist": hist, "lr_scale": scale}
 
     return fit
+
+
+def fit_prior_fused(model, params: Params, points, target_points,
+                    cfg: FitConfig) -> Tuple[Params, dict]:
+    """Single-image fused fit: one call of the fused loss+grad per step
+    (on the card one K1 launch; on CPU tensors its plain version)."""
+    return make_fused_fit_fn(model, cfg)(params, points, target_points)

@@ -175,7 +175,7 @@ TYPE_TRANSLATION = {
     "awesome.measures.gradient_penalty_loss.GradientPenaltyLoss":
         "gradient_penalty",
     "awesome.dataset.sisbosi_dataset.SISBOSIDataset":
-        "awesome_tpu.data.sisbosi.SISBOSIDataset",
+        "awesome_tpu_torch.data.sisbosi.SISBOSIDataset",
     "awesome.dataset.sisbosi_dataset.ConvexityDataset":
         "awesome_tpu_torch.data.convexity.ConvexityDataset",
     "awesome.dataset.fbms_sequence_dataset.FBMSSequenceDataset":

@@ -1,5 +1,5 @@
-"""Evaluation / plotting / saving toolbox; counterpart of the parts of
-``awesome_tpu/runner/functions.py`` that the runner calls.
+"""Evaluation / plotting / saving toolbox; counterpart of
+``awesome_tpu/runner/functions.py``.
 
 - :func:`get_result`: full-image inference with one image's slice of the
   stacked params (spec `run/functions.py:2111`),
@@ -9,7 +9,10 @@
   grid, chunked (`:2154`),
 - :func:`save_result`: masks + overlay PNGs into a run dir (`:2490`),
 - mask <-> channel converters (`:1314,1469`),
-- :func:`plot_mask` / :func:`plot_as_image` figures.
+- :func:`plot_mask` / :func:`plot_as_image` figures, the
+  :func:`saveable` decorator and :func:`plot_space_time_tube`, and a GIF
+  writer (`awesome/util/gif_writer_images.py:10`),
+- the SAM-mask utilities (`:1050-1120`).
 
 PIL and matplotlib are imported only where an image is written.
 """
@@ -177,3 +180,118 @@ def save_result(out_dir: str, index: int, image: np.ndarray,
     plot_mask(image, seg_mask, path=p)
     paths["overlay"] = p
     return paths
+
+
+def write_gif(frames: Sequence[np.ndarray], path: str,
+              duration_ms: int = 100) -> str:
+    """Animated GIF from (H, W, 3) float frames.
+
+    Spec: `awesome/util/gif_writer_images.py:10`.
+    """
+    from PIL import Image
+
+    imgs = [Image.fromarray((np.clip(f, 0, 1) * 255).astype(np.uint8))
+            for f in frames]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    imgs[0].save(path, save_all=True, append_images=imgs[1:],
+                 duration=duration_ms, loop=0)
+    return path
+
+
+# --- figure-save decorator -------------------------------------------------
+
+
+def saveable(fn):
+    """Decorate a figure-producing function with ``path=`` / ``show=``
+    kwargs that save/close the figure.
+
+    Spec: `awesome/util/matplotlib.py` ``saveable()`` (the reference wraps
+    every plot helper with it so handles can route figures to run dirs).
+    """
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(*args, path: Optional[str] = None, show: bool = False,
+                **kwargs):
+        fig = fn(*args, **kwargs)
+        if fig is None:
+            return None
+        if path is not None:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            fig.savefig(path, bbox_inches="tight")
+        if not show:
+            _pyplot().close(fig)
+        return fig
+
+    return wrapper
+
+
+# --- SAM-mask utilities ----------------------------------------------------
+# Spec: `awesome/run/functions.py:1050-1120` — utilities over
+# segment-anything outputs (lists of boolean masks + scores). The model
+# itself is an external dependency; these are the pure array transforms.
+
+
+def sam_masks_to_label_mask(masks: Sequence[np.ndarray],
+                            scores: Optional[Sequence[float]] = None,
+                            base_value: int = 0) -> np.ndarray:
+    """Paint a stack of (possibly overlapping) boolean masks into one
+    integer label map: bigger masks first so smaller (higher-detail) masks
+    overwrite them; ids follow the (score-sorted) paint order."""
+    if not len(masks):
+        raise ValueError("need at least one mask")
+    order = list(range(len(masks)))
+    if scores is not None:
+        order.sort(key=lambda i: -float(scores[i]))
+    order.sort(key=lambda i: -int(np.asarray(masks[i]).sum()))
+    label = np.full(np.asarray(masks[0]).shape, base_value, np.int32)
+    for new_id, i in enumerate(order, start=1):
+        label[np.asarray(masks[i], bool)] = new_id
+    return label
+
+
+def filter_sam_masks(masks: Sequence[np.ndarray], scores: Sequence[float],
+                     min_score: float = 0.8, min_area: int = 0,
+                     max_area: Optional[int] = None
+                     ) -> Tuple[List[np.ndarray], List[float]]:
+    """Quality/area filtering of SAM mask proposals."""
+    out_m, out_s = [], []
+    for m, s in zip(masks, scores):
+        area = int(np.asarray(m).sum())
+        if s < min_score or area < min_area:
+            continue
+        if max_area is not None and area > max_area:
+            continue
+        out_m.append(np.asarray(m, bool))
+        out_s.append(float(s))
+    return out_m, out_s
+
+
+# --- 3D space-time plots ----------------------------------------------------
+
+
+@saveable
+def plot_space_time_tube(volume_fg: np.ndarray, max_points: int = 20000,
+                         elev: float = 20.0, azim: float = -60.0):
+    """Scatter the foreground voxels of a (T, H, W) space-time mask — the
+    'temporal connectedness tube' figure. Needs matplotlib, which the
+    runners' paths do not: where it is not installed this helper raises
+    ``ImportError`` and nothing else in this module is affected.
+
+    Spec: `awesome/run/functions.py:2197...` 3D space-time tube plots (the
+    reference draws the spatio-temporal prior's level set over frames).
+    """
+    plt = _pyplot()
+    vol = np.asarray(volume_fg, bool)
+    t, y, x = np.nonzero(vol)
+    if len(t) > max_points:
+        sel = np.linspace(0, len(t) - 1, max_points).astype(int)
+        t, y, x = t[sel], y[sel], x[sel]
+    fig = plt.figure(figsize=(6, 5))
+    ax = fig.add_subplot(111, projection="3d")
+    ax.scatter(x, t, y, s=1, c=t, cmap="viridis", alpha=0.5)
+    ax.set_xlabel("x")
+    ax.set_ylabel("t (frame)")
+    ax.set_zlabel("y")
+    ax.view_init(elev=elev, azim=azim)
+    return fig

@@ -25,6 +25,7 @@ import datetime as _dt
 import enum
 import importlib
 import inspect
+import json
 import os
 import types
 from typing import Any, Callable, Dict, List
@@ -38,17 +39,26 @@ _RULES: List["Rule"] = []
 PORT_MODULES = {
     "awesome_tpu.analytics.result_model":
         "awesome_tpu_torch.analytics.result_model",
+    "awesome_tpu.core.affine": "awesome_tpu_torch.core.affine",
     "awesome_tpu.core.grids": "awesome_tpu_torch.core.grids",
     "awesome_tpu.core.transforms": "awesome_tpu_torch.core.transforms",
     "awesome_tpu.core.tree": "awesome_tpu_torch.core.tree",
+    "awesome_tpu.data.awesome_dataset":
+        "awesome_tpu_torch.data.awesome_dataset",
     "awesome_tpu.data.batching": "awesome_tpu_torch.data.batching",
     "awesome_tpu.data.convexity": "awesome_tpu_torch.data.convexity",
     "awesome_tpu.data.fbms": "awesome_tpu_torch.data.fbms",
     "awesome_tpu.data.image_sample": "awesome_tpu_torch.data.image_sample",
+    "awesome_tpu.data.mapping": "awesome_tpu_torch.data.mapping",
+    "awesome_tpu.data.sisbosi": "awesome_tpu_torch.data.sisbosi",
     "awesome_tpu.data.split": "awesome_tpu_torch.data.split",
+    "awesome_tpu.data.subdivisible": "awesome_tpu_torch.data.subdivisible",
     "awesome_tpu.data.synthetic": "awesome_tpu_torch.data.synthetic",
     "awesome_tpu.data.weak_label_processing":
         "awesome_tpu_torch.data.weak_label_processing",
+    "awesome_tpu.errors": "awesome_tpu_torch.errors",
+    "awesome_tpu.events.event": "awesome_tpu_torch.events.event",
+    "awesome_tpu.events.watchdog": "awesome_tpu_torch.events.watchdog",
     "awesome_tpu.fit.checkpoint": "awesome_tpu_torch.fit.checkpoint",
     "awesome_tpu.fit.fused_fit": "awesome_tpu_torch.fit.fused_fit",
     "awesome_tpu.fit.optim": "awesome_tpu_torch.fit.optim",
@@ -98,7 +108,13 @@ PORT_MODULES = {
         "awesome_tpu_torch.runner.sss_extractor",
     "awesome_tpu.serialization.jsonconv":
         "awesome_tpu_torch.serialization.jsonconv",
+    "awesome_tpu.utils.corruptions": "awesome_tpu_torch.utils.corruptions",
+    "awesome_tpu.utils.format": "awesome_tpu_torch.utils.format",
+    "awesome_tpu.utils.logging": "awesome_tpu_torch.utils.logging",
+    "awesome_tpu.utils.profiling": "awesome_tpu_torch.utils.profiling",
+    "awesome_tpu.utils.shims": "awesome_tpu_torch.utils.shims",
     "awesome_tpu.utils.tensorboard": "awesome_tpu_torch.utils.tensorboard",
+    "awesome_tpu.utils.timer": "awesome_tpu_torch.utils.timer",
 }
 
 
@@ -396,6 +412,17 @@ def _is_port_module_class(cls) -> bool:
 
 
 # --- file I/O ------------------------------------------------------------
+
+def save_json(value: Any, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(to_jsonable(value), f, indent=2)
+
+
+def load_json(path: str, device=None) -> Any:
+    with open(path) as f:
+        return from_jsonable(json.load(f), device)
+
 
 def save_yaml(value: Any, path: str) -> None:
     import yaml

@@ -160,7 +160,21 @@ Phases, each printing its own line (any failure exits nonzero):
     featxy with) with the 'spectral_device' proxy, 12 images of 64x64, 400
     epochs, the script's global floors: exit 0, the table written, each
     cell's MIOUs and seconds;
-22. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
+22. the data and utilities (``data_utils_path``): ``fit_prior_fused``
+    with the bench model at 480x640, 200 steps timed by ``DeviceTimer``
+    (one K1 launch per step, a falling loss, params bitwise equal to
+    ``make_fused_fit_fn``'s, a 5-step ``trace`` written; its ms/step
+    printed beside the main path's K1 ms); the convexity runner at full
+    width with the reference's ``SISBOSIDataset`` type on the runner
+    phase's 8 images, augmented, 40 epochs and 100 pretrain steps (K4
+    and K5 once per epoch, metrics in [0, 1], two builds with one seed
+    equal bit for bit, the checkpoint saves timed apart, a 20-epoch
+    window timed and profiled); a
+    ``PriorCache`` of its fitted priors on the card with a bitwise
+    save/load; ``assert_finite`` on the fitted trees and a backward NaN
+    trapped by ``debug_guard``; the ``PhaseTimer`` report (run folders in
+    ``build/smoke_data/``);
+23. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
     K1/K2) its time at its path's shape, its launches on that path, the
     steps, launches per step, its bound on this card, the plain version's
     time, and its error against the plain version at that shape; K2 also
@@ -169,7 +183,7 @@ Phases, each printing its own line (any failure exits nonzero):
     8, per-image points), at the image-mode runner's (width 64, G = 8,
     per-image points), and K1 at the FBMS pretrain's (480x640, G = 1),
     each printed as a ``kernel_vs_plain`` line too;
-23. the card's name and power limit, and last the result line
+24. the card's name and power limit, and last the result line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Phases 5-8 also profile a 20-step window of their fit with
@@ -2583,6 +2597,256 @@ def paper_table_path(root: str) -> dict:
             "epochs": [PAPER_TABLE_EPOCHS, 800], "seconds": seconds}
 
 
+# The data and utilities slice: the single-image fused fit at the main
+# path's shape, SISBOSI through the convexity runner, the prior cache
+FUSED_STEPS = 200
+TRACE_STEPS = 5
+# 40 epochs cross two checkpoint epochs (the runner's every 20th) and one
+# evaluation tick; each checkpoint's config snapshot carries the 8
+# in-memory samples, so its saves are timed apart
+SISBOSI_EPOCHS = 40
+SISBOSI_EVAL_NTH = 20
+SISBOSI_PRETRAIN = 100
+SISBOSI_TYPE = "awesome.dataset.sisbosi_dataset.SISBOSIDataset"
+
+
+def _same_samples(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(getattr(x, f), getattr(y, f))
+        for x, y in zip(a, b)
+        for f in ("image", "gt", "fg_mask", "bg_mask"))
+
+
+def data_utils_path(device, root: str) -> dict:
+    """The data and utilities slice on the card: (1) ``fit_prior_fused``
+    with the bench model at 480x640 on the ellipse target,
+    ``FUSED_STEPS`` steps timed by ``DeviceTimer`` (the phases by
+    ``PhaseTimer``): one K1 launch per step, a falling loss, params
+    bitwise equal to ``make_fused_fit_fn``'s, and a ``trace`` of
+    ``TRACE_STEPS`` steps written; (2) ``AwesomeRunner`` at full width
+    with the reference's ``SISBOSIDataset`` type (through
+    ``TYPE_TRANSLATION``) on the runner phase's 8 images, augmented,
+    ``SISBOSI_EPOCHS`` epochs and ``SISBOSI_PRETRAIN`` pretrain steps: K4
+    and K5 once per epoch (K4 once more per evaluation), metrics in [0,
+    1], two builds with one seed giving the same samples bit for bit, the
+    checkpoint saves timed apart from the training, a 20-epoch window
+    timed and profiled; (3) ``PriorCache`` holding the
+    runner's fitted priors: extract/apply on the card, a bitwise
+    save/load, ``assert_finite`` on the fitted trees, and a NaN made in a
+    backward inside ``debug_guard`` raising."""
+    import shutil
+
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.data.awesome_dataset import PriorCache
+    from awesome_tpu_torch.data.sisbosi import SISBOSIDataset
+    from awesome_tpu_torch.data.synthetic import make_sample
+    from awesome_tpu_torch.fit.fused_fit import (
+        fit_prior_fused,
+        make_fused_fit_fn,
+    )
+    from awesome_tpu_torch.fit.prior_fit import FitConfig
+    from awesome_tpu_torch.runner.runner import AwesomeRunner
+    from awesome_tpu_torch.utils.profiling import (
+        PhaseTimer,
+        assert_finite,
+        debug_guard,
+        trace,
+    )
+    from awesome_tpu_torch.utils.timer import DeviceTimer
+
+    shutil.rmtree(root, ignore_errors=True)
+    t_all = time.perf_counter()
+    phases = PhaseTimer()
+
+    # (1) the single-image fused fit
+    h, w = 480, 640
+    model = bench_model((h, w), device)
+    pts = G.flatten_grid(G.pixel_grid((h, w), device=device))
+    target = ellipse_target(h, w, device)
+    params = model.init(torch.Generator().manual_seed(2))
+    cfg = FitConfig(num_steps=FUSED_STEPS, lr=1e-3, nan_guard_grads=False)
+    fit_prior_fused(model, params, pts, target,
+                    dataclasses.replace(cfg, num_steps=2))  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    with phases.phase("fit_prior_fused"), DeviceTimer() as timer:
+        fitted, aux = fit_prior_fused(model, params, pts, target, cfg)
+        timer.wait_for(fitted)
+    k1, k1_bf16, _, _, ran = counts()
+    if (k1, k1_bf16, ran) != (FUSED_STEPS, 0, FUSED_STEPS):
+        raise AssertionError(f"fit_prior_fused: K1 {k1} (bf16 {k1_bf16}) "
+                             f"launches in {ran} of {FUSED_STEPS} steps")
+    hist = aux["loss_hist"].cpu().numpy()
+    check_hist(hist, "fit_prior_fused")
+    with phases.phase("make_fused_fit_fn", wait_on=aux):
+        ref, ref_aux = make_fused_fit_fn(model, cfg)(params, pts, target)
+    diff = first_difference(fitted, ref)
+    if diff is not None or not torch.equal(aux["loss_hist"],
+                                           ref_aux["loss_hist"]):
+        raise AssertionError(f"fit_prior_fused differs from "
+                             f"make_fused_fit_fn: {diff}")
+    assert_finite(fitted, "fit_prior_fused params")
+    trace_dir = os.path.join(root, "trace")
+    with phases.phase("trace"), trace(trace_dir):
+        fit_prior_fused(model, params, pts, target,
+                        dataclasses.replace(cfg, num_steps=TRACE_STEPS))
+        torch.cuda.synchronize()
+    traced = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+    if not traced:
+        raise AssertionError(f"trace wrote nothing under {trace_dir}")
+    fused = {"shape": [h, w], "steps": FUSED_STEPS, "k1_launches": k1,
+             "seconds": timer.elapsed,
+             "ms_per_step": 1e3 * timer.elapsed / FUSED_STEPS,
+             "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+             "bitwise_equal_to_make_fused_fit_fn": True,
+             "trace_files": traced,
+             "trace_bytes": sum(os.path.getsize(os.path.join(trace_dir, f))
+                                for f in traced)}
+
+    # (2) SISBOSI through the convexity runner
+    samples = [make_sample(i, h=sh, w=sw)
+               for i, (sh, sw) in enumerate(RUNNER_SHAPES)]
+    dargs = {"samples": samples, "augmentation": True, "seed": 0,
+             "split_ratio": 0.75}
+
+    def config(folder):
+        return runner_config(
+            folder, device, name_experiment="smoke_sisbosi",
+            dataset_type=SISBOSI_TYPE, dataset_args=dargs,
+            num_epochs=SISBOSI_EPOCHS,
+            compute_metrics_during_training_nth_epoch=SISBOSI_EVAL_NTH,
+            validation_each_nth_epoch=SISBOSI_EVAL_NTH,
+            pretrain_args={"num_epochs": SISBOSI_PRETRAIN,
+                           "proper_prior_fit_retrys": 1})
+
+    torch.cuda.synchronize()
+    zero_counts()
+    runner = AwesomeRunner(config(os.path.join(root, "sisbosi")))
+    with phases.phase("sisbosi_build"):
+        runner.build()
+    if not isinstance(runner.dataset, SISBOSIDataset):
+        raise AssertionError(f"{SISBOSI_TYPE} built {type(runner.dataset)}")
+    again = AwesomeRunner(config(os.path.join(root, "sisbosi_again")))
+    if not _same_samples(runner.samples, again.build_dataset()):
+        raise AssertionError("two SISBOSI builds with one seed differ")
+    if _same_samples(runner.samples, samples):
+        raise AssertionError("SISBOSI augmentation changed no sample")
+    with phases.phase("sisbosi_pretrain"):
+        pre = runner.pretrain()
+        torch.cuda.synchronize()
+    _, _, k4_pre, k5_pre, _ = counts()
+    evals0 = _evals(runner)
+    saves = []
+    save_checkpoint = runner.save_checkpoint
+
+    def timed_save(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = save_checkpoint(*args, **kwargs)
+        saves.append(time.perf_counter() - t)
+        return out
+
+    runner.save_checkpoint = timed_save
+    t0 = time.perf_counter()
+    with phases.phase("sisbosi_train"):
+        res = runner.train()
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    runner.save_checkpoint = save_checkpoint
+    _, _, k4_tr, k5_tr, _ = counts()
+    k4_tr, k5_tr = k4_tr - k4_pre, k5_tr - k5_pre
+    evals = _evals(runner) - evals0
+    if k5_tr != SISBOSI_EPOCHS or k4_tr != SISBOSI_EPOCHS + evals:
+        raise AssertionError(f"SISBOSI runner: K4 {k4_tr}, K5 {k5_tr} "
+                             f"launches in {SISBOSI_EPOCHS} epochs and "
+                             f"{evals} evaluations")
+    check_hist(res["loss_hist"][runner.train_indices].mean(axis=0),
+               "the SISBOSI runner's training")
+    metrics = runner.evaluate()
+    for name, v in metrics.items():
+        if ("IOU" in name.upper() or "Accuracy" in name) and \
+                not 0.0 <= v <= 1.0:
+            raise AssertionError(f"SISBOSI runner metric {name} = {v}")
+    trained = T.tree_map(torch.clone, runner.stacked_params)
+
+    window = _image_window(runner, trained, PROF_STEPS)
+    window()
+    torch.cuda.synchronize()
+    _, _, w4, w5, _ = counts()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    ms_epoch = 1e3 * (time.perf_counter() - t0) / PROF_STEPS
+    _, _, w4b, w5b, _ = counts()
+    per_epoch = {"K4": (w4b - w4) / PROF_STEPS, "K5": (w5b - w5) / PROF_STEPS}
+    if per_epoch != {"K4": 1.0, "K5": 1.0}:
+        raise AssertionError(f"SISBOSI runner window: {per_epoch} launches "
+                             "per epoch")
+    profile = device_profile(window, PROF_STEPS, ms_epoch)
+    # each checkpoint's config snapshot carries the in-memory samples
+    ck_dir = os.path.join(runner.output_folder, "checkpoints")
+    ck_bytes = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, names in os.walk(ck_dir) for f in names)
+    sisbosi = {"images": len(samples),
+               "padded_points": int(runner._dev_batch["px"].shape[1]),
+               "cuts": {"epochs": [SISBOSI_EPOCHS, 3000],
+                        "pretrain_steps": [SISBOSI_PRETRAIN, 2000]},
+               "gate_iou": [float(v) for v in pre["gate_iou"]],
+               "train_s": train_s,
+               "checkpoint_saves": len(saves),
+               "checkpoint_s": sum(saves),
+               "train_ms_per_epoch_without_checkpoints_incl_evals":
+                   1e3 * (train_s - sum(saves)) / SISBOSI_EPOCHS,
+               "ms_per_epoch": ms_epoch, "profile": profile,
+               "launches": {"pretrain": {"K4": k4_pre, "K5": k5_pre},
+                            "train": {"K4": k4_tr, "K5": k5_tr,
+                                      "epochs": SISBOSI_EPOCHS,
+                                      "evaluations": evals},
+                            "per_epoch": per_epoch},
+               "metrics": metrics, "checkpoint_bytes": ck_bytes,
+               "augmented_builds_bitwise_equal": True}
+
+    # (3) the prior cache on the card, and the numerics guards
+    assert_finite(trained, "the SISBOSI runner's params")
+    cache = PriorCache(runner.wrapper.prior_module, len(samples), key=0)
+    cache.set_state(trained["prior"])
+    one = cache.extract_prior(3)
+    cache.apply_prior(5, T.tree_map(lambda t: t * 0.5, one))
+    leaves = T.tree_leaves(one) + T.tree_leaves(cache.get_state())
+    if any(leaf.device.type != torch.device(device).type
+           for leaf in leaves):
+        raise AssertionError(f"PriorCache moved a leaf off {device}")
+    path = os.path.join(root, "prior_cache")
+    cache.save(path)
+    loaded = PriorCache(runner.wrapper.prior_module, len(samples), key=1)
+    loaded.load(path)
+    diff = first_difference(loaded.get_state(), cache.get_state())
+    if diff is not None or any(leaf.device.type != torch.device(device).type
+                               for leaf in T.tree_leaves(loaded.get_state())):
+        raise AssertionError(f"PriorCache save/load is not bitwise on "
+                             f"{device}: {diff}")
+    x = torch.tensor([-1.0, 4.0], device=device, requires_grad=True)
+    try:
+        with debug_guard():
+            torch.sqrt(x).sum().backward()
+    except RuntimeError as e:
+        trapped = str(e).splitlines()[0]
+    else:
+        raise AssertionError("debug_guard let a backward NaN through")
+    torch.cuda.synchronize()
+    return {"phase": "data_utils", "fit_prior_fused": fused,
+            "sisbosi_runner": sisbosi,
+            "prior_cache": {"entries": cache.num_entries,
+                            "leaves_on": device,
+                            "save_load_bitwise": True},
+            "debug_guard_trapped": trapped,
+            "phase_seconds": phases.report(),
+            "seconds": time.perf_counter() - t_all}
+
+
 def icnn_inputs(width, layers, c, n, g, per_image, seed, device):
     """An ICNN, its stacked params (G images), their (G, P) rows, points
     (N, C) or (G, N, C), and an upstream grad (G, N)."""
@@ -3113,6 +3377,7 @@ def main() -> int:
 
     model, main_launches, main_steps, res = main_path(STEPS, dev)
     print(json.dumps(res), flush=True)
+    main_ms_per_step = res["ms_per_step"]
     bmodel, b_launches, b_steps, res = batched_path(STEPS, dev)
     print(json.dumps(res), flush=True)
     k4, k5, convex_steps, res = convex_path(STEPS, dev)
@@ -3149,6 +3414,8 @@ def main() -> int:
     print(json.dumps(spectral_path(dev)), flush=True)
     print(json.dumps(paper_table_path(
         os.path.join("build", "smoke_paper_table"))), flush=True)
+    data = data_utils_path(dev, os.path.join("build", "smoke_data"))
+    print(json.dumps(data), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
@@ -3229,6 +3496,11 @@ def main() -> int:
                       "max_abs_err": entry["max_abs_err"],
                       "bitwise_repeat": True}), flush=True)
     kernels.append(entry)
+    print(json.dumps({
+        "phase": "fit_prior_fused_vs_main_path",
+        "fit_prior_fused_ms_per_step": data["fit_prior_fused"]["ms_per_step"],
+        "main_path_ms_per_step": main_ms_per_step,
+        "main_path_k1_ms": kernels[0]["ms"]}), flush=True)
     print("library: no single PyTorch call computes the fused flagship loss "
           "and gradient, a fused ICNN forward, or its weight grads; "
           "library_ms is null")
