@@ -21,13 +21,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import importlib
 import json
 import logging
 import os
 import shutil
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +40,9 @@ logger = logging.getLogger(__name__)
 
 # what a torn or foreign save raises when it is read
 _UNREADABLE = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
+
+# a checkpoint's in-memory samples (``dataset_args['samples']``), binary
+SAMPLES_FILE = "samples.npz"
 
 
 def _key(path) -> str:
@@ -212,24 +216,66 @@ def load_pytree(path: str, template: Optional[Any] = None,
                             _decode(structure, arrays, torch.device("cpu")))
 
 
+def config_snapshot(config) -> Tuple[Dict, Dict[str, np.ndarray]]:
+    """A config's JSON for a checkpoint's ``meta.json`` and the arrays of
+    its in-memory samples (``dataset_args['samples']``). The samples'
+    JSON holds each array's key in :data:`SAMPLES_FILE` instead of its
+    values, under ``{"__npz__": SAMPLES_FILE, "value": ...}``. A config
+    without samples gives ``to_jsonable(config)`` and no arrays."""
+    from awesome_tpu_torch.serialization.jsonconv import to_jsonable
+
+    args = getattr(config, "dataset_args", None)
+    if not isinstance(args, dict) or args.get("samples") is None:
+        return to_jsonable(config), {}
+    arrays: Dict[str, np.ndarray] = {}
+    samples = to_jsonable(args["samples"], arrays)
+    rest = copy.copy(config)
+    rest.dataset_args = {k: v for k, v in args.items() if k != "samples"}
+    snap = to_jsonable(rest)
+    snap["dataset_args"]["samples"] = {"__npz__": SAMPLES_FILE,
+                                       "value": samples}
+    return snap, arrays
+
+
+def _restore_samples(config: Optional[Dict], directory: str
+                     ) -> Optional[Dict]:
+    """The snapshot's samples with their arrays read back from
+    :data:`SAMPLES_FILE` (bit for bit; ``from_jsonable`` rebuilds the
+    samples)."""
+    from awesome_tpu_torch.serialization.jsonconv import inline_arrays
+
+    args = (config or {}).get("dataset_args")
+    ref = args.get("samples") if isinstance(args, dict) else None
+    if not (isinstance(ref, dict) and "__npz__" in ref):
+        return config
+    with np.load(os.path.join(directory, ref["__npz__"])) as arrays:
+        samples = inline_arrays(ref["value"], arrays)
+    return dict(config, dataset_args=dict(args, samples=samples))
+
+
 class AgentCheckpoint:
     """Bundle of everything needed to resume or analyze a run; its
-    ``meta.json`` has the JAX package's keys."""
+    ``meta.json`` has the JAX package's keys. ``arrays`` (from
+    :func:`config_snapshot`) go to :data:`SAMPLES_FILE` beside it."""
 
     def __init__(self, name: str, params: Any, opt_state: Any = None,
                  tracker: Optional[Dict] = None,
                  config: Optional[Dict] = None,
-                 extra: Optional[Dict] = None):
+                 extra: Optional[Dict] = None,
+                 arrays: Optional[Dict[str, np.ndarray]] = None):
         self.name = name
         self.params = params
         self.opt_state = opt_state
         self.tracker = tracker
         self.config = config
         self.extra = extra or {}
+        self.arrays = arrays or {}
 
     def save(self, directory: str) -> str:
         os.makedirs(directory, exist_ok=True)
         save_pytree(self.params, os.path.join(directory, "params"))
+        if self.arrays:
+            np.savez(os.path.join(directory, SAMPLES_FILE), **self.arrays)
         if self.opt_state is not None:
             save_pytree(self.opt_state, os.path.join(directory, "opt_state"))
         meta = {
@@ -256,7 +302,8 @@ class AgentCheckpoint:
             opt_state = load_pytree(os.path.join(directory, "opt_state"),
                                     opt_template, device)
         return cls(name=meta["name"], params=params, opt_state=opt_state,
-                   tracker=meta.get("tracker"), config=meta.get("config"),
+                   tracker=meta.get("tracker"),
+                   config=_restore_samples(meta.get("config"), directory),
                    extra=meta.get("extra", {}))
 
 

@@ -22,6 +22,7 @@ from awesome_tpu_torch.fit.prior_fit import (
     _stacked_weights,
     make_point_weights,
     run_fit_loop,
+    summed_over_points,
 )
 from awesome_tpu_torch.ops.flagship import (
     FlagshipLossGrad,
@@ -78,7 +79,10 @@ class _FlatFit:
             lambda t: t.clone(memory_format=torch.contiguous_format), tree)
 
     def run(self, flat, points, targets, weights, active, batch_shape,
-            group_mean):
+            group_mean, grid_sum=None):
+        """The fit loop on flat rows; ``grid_sum``: the points are this
+        rank's block of a mesh's grid axis, and each step's (G, P + 1)
+        losses and grads are summed over the blocks in one reduction."""
         x = points.contiguous()
         g = flat.shape[0]
         tgt = targets.reshape(g, -1).contiguous()
@@ -89,9 +93,9 @@ class _FlatFit:
             loss, grads = self.fused.flat(p, x, tgt, wpt)
             return (loss[0] if squeeze else loss), grads
 
-        return run_fit_loop(loss_grad, flat, self.cfg, self.wd, self.clip,
-                            active, batch_shape=batch_shape,
-                            group_mean=group_mean)
+        return run_fit_loop(summed_over_points(loss_grad, grid_sum), flat,
+                            self.cfg, self.wd, self.clip, active,
+                            batch_shape=batch_shape, group_mean=group_mean)
 
 
 def make_fused_fit_fn(model, cfg: FitConfig,
@@ -119,14 +123,16 @@ def make_batched_fused_fit_fn(model, cfg: FitConfig,
     2); every image keeps its own optimizer, plateau and NaN-guard state
     (what ``vmap`` of the single fit gives).
     ``engine(stacked_params, points, targets, active (B,),
-    point_masks=None) -> (params, aux)`` with ``loss_hist`` (B, steps)."""
+    point_masks=None, grid_sum=None) -> (params, aux)`` with ``loss_hist``
+    (B, steps); ``grid_sum`` as in ``prior_fit._make_batched_engine``."""
     eng = _FlatFit(model, cfg, tile_n)
 
-    def engine(stacked, points, targets, active, point_masks=None):
-        weights = _stacked_weights(targets, cfg, point_masks)
+    def engine(stacked, points, targets, active, point_masks=None,
+               grid_sum=None):
+        weights = _stacked_weights(targets, cfg, point_masks, grid_sum)
         flat, hist, scale = eng.run(eng.pack(stacked), points, targets,
                                     weights, active, (targets.shape[0],),
-                                    False)
+                                    False, grid_sum)
         return eng.unpack(flat), {"loss_hist": hist.T, "lr_scale": scale}
 
     return engine

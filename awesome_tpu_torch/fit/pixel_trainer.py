@@ -21,6 +21,14 @@ guard, the validation-holdout ``trainable`` mask, the plateau and the
 ``lr_stop_scale`` freeze are all ``torch.where``s on device tensors, and
 the loss history stays on the device until the caller reads it, once per
 segment. Variable pixel counts are padded, with masks (weight 0).
+
+On a mesh (``mesh=``) the segment functions take and return the whole
+batch and state on every rank; each rank trains its block of the images
+(the 'data' axis) on its block of their pixels (the 'grid' axis, where the
+loss is a sum over pixels: the default masked AwesomeLoss). The scribble
+and random-pixel counts, each epoch's losses and grads are summed over
+the grid group; the shared seg net's mean over images and its grads over
+the whole mesh. The states come back together once per segment.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from awesome_tpu_torch.core import tree as T
 from awesome_tpu_torch.fit import optim
 from awesome_tpu_torch.measures.losses import bce
 from awesome_tpu_torch.nn.module import make_generator
+from awesome_tpu_torch.parallel.mesh import sum_trees
 
 Params = Any
 
@@ -86,17 +95,23 @@ class PixelTrainState(NamedTuple):
 def masked_awesome_loss(output, target, scribble_mask, random_mask,
                         alpha: float, extra_penalty,
                         pen_base_scale: float = 0.1,
-                        pen_align_scale: float = 100.0):
+                        pen_align_scale: float = 100.0,
+                        n_scr=None, n_rnd=None):
     """AwesomeLoss with explicit pixel-role masks (padding-safe).
 
     output (N, 2): [seg, prior] probabilities; target (N, 1); masks (N,).
     Base: mean-BCE over scribble pixels of seg + alpha * same for prior.
     Extra-penalty phase (`awesome_loss.py:55-61`): pen_base_scale * base +
     pen_align_scale * mean((prior - (seg > .5))^2) over random pixels.
-    ``extra_penalty`` is a bool or a bool tensor.
+    ``extra_penalty`` is a bool or a bool tensor. ``n_scr``, ``n_rnd``:
+    the image's scribble and random-pixel counts when these N pixels are
+    one block of them (a mesh's grid axis): the loss is then this block's
+    share, and the blocks' shares sum to the image's loss.
     """
     sw = scribble_mask.to(output.dtype)[:, None]
-    n_scr = torch.clamp_min(sw.sum(), 1.0)
+    if n_scr is None:
+        n_scr = sw.sum()
+    n_scr = torch.clamp_min(n_scr, 1.0)
 
     def mbce(pred):
         raw = bce(pred, target, reduction="none")
@@ -105,7 +120,9 @@ def masked_awesome_loss(output, target, scribble_mask, random_mask,
     base = mbce(output[:, 0:1]) + alpha * mbce(output[:, 1:2])
 
     rw = random_mask.to(output.dtype)[:, None]
-    n_rnd = torch.clamp_min(rw.sum(), 1.0)
+    if n_rnd is None:
+        n_rnd = rw.sum()
+    n_rnd = torch.clamp_min(n_rnd, 1.0)
     hard_seg = (output[:, 0:1] > 0.5).to(output.dtype).detach()
     align = ((output[:, 1:2] - hard_seg) ** 2 * rw).sum() / n_rnd
     with_pen = pen_base_scale * base + pen_align_scale * align
@@ -173,20 +190,26 @@ def _make_pixel_step(wrapper, cfg: PixelTrainConfig,
     returns ``(loss, new_seg_state)``; the new state is kept where the
     image's step is."""
     _, update_fn = _pixel_optim(cfg)
-    if loss_impl is None:
+    with_counts = loss_impl is None
+    if with_counts:
 
-        def loss_impl(params, px, gt, smask, rmask, extra_penalty):
+        def loss_impl(params, px, gt, smask, rmask, extra_penalty, n_scr,
+                      n_rnd):
             out = wrapper.apply(params, px)
             return masked_awesome_loss(
                 out, gt, smask, rmask, cfg.alpha, extra_penalty,
                 pen_base_scale=cfg.pen_base_scale,
-                pen_align_scale=cfg.pen_align_scale)
+                pen_align_scale=cfg.pen_align_scale, n_scr=n_scr,
+                n_rnd=n_rnd)
 
     vgv = torch.func.vmap(torch.func.grad_and_value(loss_impl,
                                                     has_aux=stateful_seg))
     has_clip = hasattr(wrapper, "enforce_convexity")
 
-    def step(carry, epoch, px, gt, smask, rmask, trainable):
+    def step(carry, epoch, px, gt, smask, rmask, trainable, grid_sum=None):
+        """``grid_sum``: ``px`` holds one block of the images' pixels; the
+        scribble and random-pixel counts, and each image's loss and grads,
+        are summed over the blocks."""
         params, opt_state, sched = carry
         extra = _extra_flag(cfg, epoch)
         opt_params, seg_state = _split_seg_state(params, stateful_seg)
@@ -194,7 +217,12 @@ def _make_pixel_step(wrapper, cfg: PixelTrainConfig,
             grads, (loss, new_seg_state) = vgv(opt_params, seg_state, px,
                                                gt, smask, rmask, extra)
         else:
-            grads, loss = vgv(opt_params, px, gt, smask, rmask, extra)
+            counts = (_pixel_counts(smask, rmask, px.dtype, grid_sum)
+                      if with_counts else ())
+            grads, loss = vgv(opt_params, px, gt, smask, rmask, extra,
+                              *counts)
+            if grid_sum is not None:
+                loss, grads = sum_trees(grid_sum, loss, grads)
         new_params, new_opt = update_fn(
             opt_params, grads, opt_state, _lr(cfg, sched, extra),
             weight_decay=_weight_decay(cfg, opt_params))
@@ -242,12 +270,13 @@ def pixel_train_init(wrapper, stacked_params: Params,
 
 
 def _run_segment(step: Callable, state: PixelTrainState, segment_len: int,
-                 batch_args: Tuple, trainable) -> Tuple[PixelTrainState,
-                                                        dict]:
+                 batch_args: Tuple, trainable, **step_kw
+                 ) -> Tuple[PixelTrainState, dict]:
     carry = (state.params, state.opt_state, state.sched)
     hist = []
     for i in range(segment_len):
-        carry, loss = step(carry, state.epoch + i, *batch_args, trainable)
+        carry, loss = step(carry, state.epoch + i, *batch_args, trainable,
+                           **step_kw)
         hist.append(loss)
     params, opt_state, sched = carry
     new_state = PixelTrainState(params, opt_state, sched,
@@ -263,21 +292,54 @@ def _all_trainable(gt: torch.Tensor, trainable) -> torch.Tensor:
     return torch.as_tensor(trainable, device=gt.device)
 
 
+def _pixel_blocks(mesh, gt: torch.Tensor, split_pixels: bool):
+    """(image block, pixel block, grid sum or None) of this rank."""
+    b, n = gt.shape[:2]
+    if not split_pixels:
+        return mesh.local("data", b), slice(0, n), None
+    return (mesh.local("data", b), mesh.local("grid", n),
+            mesh.reducer("grid", n))
+
+
+def _pixel_counts(smask: torch.Tensor, rmask: torch.Tensor, dtype,
+                  grid_sum: Optional[Callable] = None) -> torch.Tensor:
+    """(2, B) scribble and random-pixel counts of the images (exact
+    integers), summed over the pixel blocks by ``grid_sum``."""
+    counts = torch.stack([smask.sum(dim=-1), rmask.sum(dim=-1)]).to(dtype)
+    return counts if grid_sum is None else grid_sum(counts)
+
+
 def make_pixel_segment_fn(wrapper, cfg: PixelTrainConfig, segment_len: int,
                           loss_impl: Optional[Callable] = None,
-                          stateful_seg: bool = False) -> Callable:
+                          stateful_seg: bool = False,
+                          mesh=None) -> Callable:
     """Build ``segment(state, px, gt, smask, rmask, trainable) -> (state,
     aux)``: ``segment_len`` epochs for ALL images, resumable across calls
     (absolute epoch, optimizer moments and plateau state live in the
     state). ``trainable`` (B,) bool: False = validation holdout, the
     image's params stay frozen and its loss is forward-only.
     ``aux['loss_hist']`` is (B, segment_len), ``aux['lr_scale']`` (B,),
-    both on the device. ``stateful_seg``: see :func:`_make_pixel_step`."""
+    both on the device. ``stateful_seg``: see :func:`_make_pixel_step`.
+    ``mesh``: the images over 'data' and, with the default loss, the
+    pixels over 'grid' (a custom ``loss_impl``, e.g. image mode's conv
+    net, sees whole images: the grid axis replicates)."""
     step = _make_pixel_step(wrapper, cfg, loss_impl, stateful_seg)
 
     def segment(state, px, gt, smask, rmask, trainable=None):
-        return _run_segment(step, state, segment_len, (px, gt, smask, rmask),
-                            _all_trainable(gt, trainable))
+        trainable = _all_trainable(gt, trainable)
+        if mesh is None:
+            return _run_segment(step, state, segment_len,
+                                (px, gt, smask, rmask), trainable)
+        ds, gs, grid_sum = _pixel_blocks(mesh, gt, loss_impl is None)
+        local = T.tree_map(lambda x: x[ds], state)
+        new_state, aux = _run_segment(
+            step, local, segment_len,
+            tuple(x[ds, gs] for x in (px, gt, smask, rmask)), trainable[ds],
+            grid_sum=grid_sum)
+        if not mesh.splits("data", gt.shape[0]):
+            return new_state, aux
+        return (mesh.gather_tree("data", new_state),
+                mesh.gather_tree("data", aux))
 
     return segment
 
@@ -321,7 +383,7 @@ def shared_pixel_train_init(wrapper, generator, num_images: int,
 
 
 def make_shared_pixel_segment_fn(wrapper, cfg: PixelTrainConfig,
-                                 segment_len: int) -> Callable:
+                                 segment_len: int, mesh=None) -> Callable:
     """Segment engine for the shared-seg ('multi') mode: the seg net sees
     every image each epoch (mean loss over images -> averaged grads, the
     full-batch analogue of the reference's per-image steps), priors stay
@@ -331,12 +393,16 @@ def make_shared_pixel_segment_fn(wrapper, cfg: PixelTrainConfig,
     contribute NOTHING to the shared-seg gradient (the mean is weighted by
     the trainable mask) and their per-image priors stay frozen; their
     losses are still computed (forward-only). ``aux['loss_hist']`` is
-    per-image (B, L)."""
+    per-image (B, L). ``mesh``: the images over 'data' and their pixels
+    over 'grid'; the per-image losses and prior grads are summed over the
+    grid group, the mean over trainable images and the seg grads over
+    the whole mesh."""
     _, update_fn = _pixel_optim(cfg)
     prior = wrapper.prior_module
     has_clip = prior is not None and hasattr(prior, "enforce_convexity")
 
-    def per_image(seg_p, prior_p, px_i, gt_i, sm_i, rm_i, extra):
+    def per_image(seg_p, prior_p, px_i, gt_i, sm_i, rm_i, extra, n_scr,
+                  n_rnd):
         p = {"seg": seg_p}
         if prior_p is not None:
             p["prior"] = prior_p
@@ -344,35 +410,50 @@ def make_shared_pixel_segment_fn(wrapper, cfg: PixelTrainConfig,
         if prior_p is None:
             sw = sm_i.to(out.dtype)[:, None]
             raw = bce(out[:, 0:1], gt_i, reduction="none")
-            return (raw * sw).sum() / torch.clamp_min(sw.sum(), 1.0)
+            return (raw * sw).sum() / torch.clamp_min(n_scr, 1.0)
         return masked_awesome_loss(
             out, gt_i, sm_i, rm_i, cfg.alpha, extra,
             pen_base_scale=cfg.pen_base_scale,
-            pen_align_scale=cfg.pen_align_scale)
+            pen_align_scale=cfg.pen_align_scale, n_scr=n_scr, n_rnd=n_rnd)
 
     with_prior = torch.func.vmap(per_image,
-                                 in_dims=(None, 0, 0, 0, 0, 0, None))
+                                 in_dims=(None, 0, 0, 0, 0, 0, None, 0, 0))
     no_prior = torch.func.vmap(
-        lambda s, *a: per_image(s, None, *a[:4], a[4]),
-        in_dims=(None, 0, 0, 0, 0, None))
+        lambda s, *a: per_image(s, None, *a),
+        in_dims=(None, 0, 0, 0, 0, None, 0, 0))
 
-    def loss_for_grad(params, px, gt, smask, rmask, extra, tw):
+    def loss_for_grad(params, px, gt, smask, rmask, extra, tw, counts,
+                      tw_total):
         if "prior" in params:
             losses = with_prior(params["seg"], params["prior"], px, gt,
-                                smask, rmask, extra)
+                                smask, rmask, extra, *counts)
         else:
-            losses = no_prior(params["seg"], px, gt, smask, rmask, extra)
+            losses = no_prior(params["seg"], px, gt, smask, rmask, extra,
+                              *counts)
         # trainable-weighted mean: held-out images carry weight 0
-        train_loss = (losses * tw).sum() / torch.clamp_min(tw.sum(), 1.0)
+        train_loss = (losses * tw).sum() / torch.clamp_min(tw_total, 1.0)
         return train_loss, losses
 
     gv = torch.func.grad_and_value(loss_for_grad, has_aux=True)
 
-    def step(carry, epoch, px, gt, smask, rmask, trainable):
+    def step(carry, epoch, px, gt, smask, rmask, trainable, grid_sum=None,
+             data_sum=None):
+        """``grid_sum``: ``px`` holds one block of the images' pixels (the
+        counts, per-image losses and prior grads are summed over the
+        blocks); ``data_sum``: one block of the images (the mean over
+        trainable images and the seg grads are summed over the blocks)."""
         params, opt_state, sched = carry
         tw = trainable.to(px.dtype)
         extra = _extra_flag(cfg, epoch)
-        grads, (loss, losses) = gv(params, px, gt, smask, rmask, extra, tw)
+        counts = _pixel_counts(smask, rmask, px.dtype, grid_sum)
+        tw_total = tw.sum() if data_sum is None else data_sum(tw.sum())
+        grads, (loss, losses) = gv(params, px, gt, smask, rmask, extra, tw,
+                                   counts, tw_total)
+        if grid_sum is not None:
+            loss, losses, grads = sum_trees(grid_sum, loss, losses, grads)
+        if data_sum is not None:
+            loss, seg_g = sum_trees(data_sum, loss, grads["seg"])
+            grads = dict(grads, seg=seg_g)
         new_params, new_opt = update_fn(
             params, grads, opt_state, _lr(cfg, sched, extra),
             weight_decay=_weight_decay(cfg, params))
@@ -398,10 +479,39 @@ def make_shared_pixel_segment_fn(wrapper, cfg: PixelTrainConfig,
         return (params, opt_state, sched), losses.detach()
 
     def segment(state, px, gt, smask, rmask, trainable=None):
-        return _run_segment(step, state, segment_len, (px, gt, smask, rmask),
-                            _all_trainable(gt, trainable))
+        trainable = _all_trainable(gt, trainable)
+        if mesh is None:
+            return _run_segment(step, state, segment_len,
+                                (px, gt, smask, rmask), trainable)
+        b = gt.shape[0]
+        ds, gs, grid_sum = _pixel_blocks(mesh, gt, True)
+        local = _shared_prior_map(state, lambda x: x[ds])
+        new_state, aux = _run_segment(
+            step, local, segment_len,
+            tuple(x[ds, gs] for x in (px, gt, smask, rmask)), trainable[ds],
+            grid_sum=grid_sum, data_sum=mesh.reducer("data", b))
+        if not mesh.splits("data", b):
+            return new_state, aux
+        return (_shared_prior_map(new_state,
+                                  lambda x: mesh.gather("data", x)),
+                dict(aux, loss_hist=mesh.gather("data", aux["loss_hist"])))
 
     return segment
+
+
+def _shared_prior_map(state: PixelTrainState, fn: Callable
+                      ) -> PixelTrainState:
+    """``fn`` on every per-image leaf of a shared-seg state: the 'prior'
+    subtree of the params and of the optimizer's moments (the seg net,
+    the step counts and the schedule are shared)."""
+    def prior_of(tree):
+        if isinstance(tree, dict) and "prior" in tree:
+            return dict(tree, prior=T.tree_map(fn, tree["prior"]))
+        return tree
+
+    opt = state.opt_state
+    opt = type(opt)(*[prior_of(x) for x in opt])
+    return state._replace(params=prior_of(state.params), opt_state=opt)
 
 
 def train_pixel_models(wrapper, stacked_params: Params, px: torch.Tensor,

@@ -25,6 +25,7 @@ from awesome_tpu_torch.fit import optim
 from awesome_tpu_torch.measures.losses import unaries_weight
 from awesome_tpu_torch.measures.metrics import iou
 from awesome_tpu_torch.nn.module import make_generator
+from awesome_tpu_torch.parallel.mesh import sum_trees
 
 Params = Any
 
@@ -62,15 +63,18 @@ class FitConfig:
 
 
 def make_point_weights(target_points: torch.Tensor, cfg: FitConfig,
-                       point_mask: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       point_mask: Optional[torch.Tensor] = None,
+                       grid_sum: Optional[Callable] = None) -> torch.Tensor:
     """Per-point loss weights W so that loss = sum(W * se).
 
     UnariesWeightedLoss(mode) with mean reduction gives W = class_w / N;
     the how-to ``fg_weight`` scheme gives fg_w / fg_count on fg points and
     (1 - fg_w) / bg_count on bg. ``point_mask`` (N,) bool: padded points
-    get weight 0 and are left out of every count.
+    get weight 0 and are left out of every count. ``grid_sum``: the points
+    are this rank's block of the image's (a mesh's grid axis) and every
+    count is summed over the blocks, so the weights are the whole image's.
     """
+    total = grid_sum or (lambda c: c)
     t = target_points
     m = None
     if point_mask is not None:
@@ -84,15 +88,15 @@ def make_point_weights(target_points: torch.Tensor, cfg: FitConfig,
         else:
             is_bg = bg
             not_bg = 1.0 - bg
-        bg_count = torch.clamp_min(is_bg.sum(), 1.0)
-        fg_count = torch.clamp_min(not_bg.sum(), 1.0)
+        bg_count = torch.clamp_min(total(is_bg.sum()), 1.0)
+        fg_count = torch.clamp_min(total(not_bg.sum()), 1.0)
         w = torch.where(t >= 0.5, (1.0 - cfg.fg_weight) / bg_count,
                         cfg.fg_weight / fg_count)
         return w if m is None else w * m
-    w = unaries_weight(t, mode=cfg.weight_mode, mask=m)
+    w = unaries_weight(t, mode=cfg.weight_mode, mask=m, count_sum=grid_sum)
     if m is None:
-        return w / t.numel()
-    return w / torch.clamp_min(m.sum(), 1.0)
+        return w / total(torch.tensor(t.numel()))
+    return w / torch.clamp_min(total(m.sum()), 1.0)
 
 
 def _optim_fns(cfg: FitConfig):
@@ -171,6 +175,20 @@ def run_fit_loop(loss_grad: Callable, params: Params, cfg: FitConfig,
 run_fit_loop.steps = 0
 
 
+def summed_over_points(loss_grad: Callable,
+                       grid_sum: Optional[Callable]) -> Callable:
+    """``loss_grad`` whose loss and grads, partial sums over this rank's
+    block of the points, are summed over the blocks (a mesh's grid axis)
+    in ONE reduction; ``loss_grad`` itself without ``grid_sum``."""
+    if grid_sum is None:
+        return loss_grad
+
+    def summed(p):
+        return sum_trees(grid_sum, *loss_grad(p))
+
+    return summed
+
+
 def apply_in_dtype(model, params: Params, points: torch.Tensor,
                    dtype) -> torch.Tensor:
     """``model.apply`` with params and points cast to ``dtype`` and the
@@ -243,8 +261,11 @@ def make_fit_fn(model, cfg: FitConfig,
 def _make_batched_engine(model, cfg: FitConfig, per_image_points: bool,
                          loss_fn: Optional[Callable]) -> Callable:
     """``engine(stacked_params, points, targets, active (B,),
-    point_masks=None) -> (params, aux)`` with ``loss_hist`` (B, steps) and
-    ``lr_scale`` (B,) — what ``vmap`` of the single-image fit returns."""
+    point_masks=None, grid_sum=None) -> (params, aux)`` with ``loss_hist``
+    (B, steps) and ``lr_scale`` (B,) — what ``vmap`` of the single-image
+    fit returns. ``grid_sum``: the points are this rank's block (see
+    :func:`make_point_weights`); the loss and grads are summed over the
+    blocks every step."""
     if cfg.fused and loss_fn is None:
         from awesome_tpu_torch.fit.fused_fit import make_batched_fused_fit_fn
 
@@ -254,8 +275,9 @@ def _make_batched_engine(model, cfg: FitConfig, per_image_points: bool,
     vgv = torch.func.vmap(torch.func.grad_and_value(loss_fn),
                           in_dims=(0, 0 if per_image_points else None, 0, 0))
 
-    def engine(stacked, points, targets, active, point_masks=None):
-        weights = _stacked_weights(targets, cfg, point_masks)
+    def engine(stacked, points, targets, active, point_masks=None,
+               grid_sum=None):
+        weights = _stacked_weights(targets, cfg, point_masks, grid_sum)
         wd = make_weight_decay_tree(model, T.tree_select(stacked, 0), cfg)
 
         def loss_grad(p):
@@ -263,7 +285,8 @@ def _make_batched_engine(model, cfg: FitConfig, per_image_points: bool,
             return loss, grads
 
         params, hist, scale = run_fit_loop(
-            loss_grad, stacked, cfg, wd, clip, active,
+            summed_over_points(loss_grad, grid_sum), stacked, cfg, wd, clip,
+            active,
             batch_shape=(targets.shape[0],),
             check_grads=cfg.nan_guard_grads)
         return params, {"loss_hist": hist.T, "lr_scale": scale}
@@ -272,10 +295,12 @@ def _make_batched_engine(model, cfg: FitConfig, per_image_points: bool,
 
 
 def _stacked_weights(targets: torch.Tensor, cfg: FitConfig,
-                     point_masks: Optional[torch.Tensor]) -> torch.Tensor:
+                     point_masks: Optional[torch.Tensor],
+                     grid_sum: Optional[Callable] = None) -> torch.Tensor:
     return torch.stack([
         make_point_weights(targets[b], cfg,
-                           None if point_masks is None else point_masks[b])
+                           None if point_masks is None else point_masks[b],
+                           grid_sum)
         for b in range(targets.shape[0])
     ])
 
@@ -288,17 +313,19 @@ def fit_prior(model, params: Params, points: torch.Tensor,
 
 
 def _gate_iou(out, target_points, cfg: FitConfig,
-              point_mask=None) -> torch.Tensor:
+              point_mask=None, grid_sum=None) -> torch.Tensor:
     """Acceptance IoU of the thresholded prior output ``out`` against the
     thresholded unaries, scored on foreground (fg encoded as 0, hence the
-    inversion). Padded points count as agreeing background."""
+    inversion). Padded points count as agreeing background. ``grid_sum``:
+    the intersection and union of this rank's block of the points are
+    summed over the blocks first."""
     prob = torch.sigmoid(out) if cfg.use_sigmoid else out
     target = target_points
     if point_mask is not None:
         m = point_mask.reshape(target.shape[:-1] + (1,))
         prob = torch.where(m, prob, torch.ones_like(prob))
         target = torch.where(m, target, torch.ones_like(target))
-    return iou(prob > 0.5, target > 0.5, invert=True)
+    return iou(prob > 0.5, target > 0.5, invert=True, count_sum=grid_sum)
 
 
 def _init_fresh(model, retry_keys: Sequence) -> Params:
@@ -312,15 +339,16 @@ def make_gate_retry_fn(model, cfg: FitConfig, per_image_points: bool = False,
                        with_point_masks: bool = False,
                        loss_fn: Optional[Callable] = None) -> Callable:
     """``gr(fitted, points, targets, valid_mask, retry_keys=None,
-    point_masks=None) -> (fitted, scores)``: scores every fit's gate IoU
-    (NaN counts as failed) and, given ``retry_keys``, refits the failures
-    from fresh inits for the full ``num_steps``, keeping the retry."""
+    point_masks=None, grid_sum=None) -> (fitted, scores)``: scores every
+    fit's gate IoU (NaN counts as failed) and, given ``retry_keys``,
+    refits the failures from fresh inits for the full ``num_steps``,
+    keeping the retry. ``grid_sum``: see :func:`_gate_iou`."""
     del with_point_masks
     refit = _make_batched_engine(
         model, dataclasses.replace(cfg, gate_threshold=None),
         per_image_points, loss_fn)
 
-    def scores_of(stacked, points, targets, point_masks):
+    def scores_of(stacked, points, targets, point_masks, grid_sum):
         # the whole batch's outputs in one vmapped apply (one launch of a
         # fused ICNN kernel), then each image's IoU
         with torch.no_grad():
@@ -329,22 +357,24 @@ def make_gate_retry_fn(model, cfg: FitConfig, per_image_points: bool = False,
                     stacked, points)
         return torch.stack([
             _gate_iou(outs[b], targets[b], cfg,
-                      None if point_masks is None else point_masks[b])
+                      None if point_masks is None else point_masks[b],
+                      grid_sum)
             for b in range(targets.shape[0])
         ])
 
     def gr(fitted, points, stacked_targets, valid_mask, retry_keys=None,
-           point_masks=None):
-        scores = scores_of(fitted, points, stacked_targets, point_masks)
+           point_masks=None, grid_sum=None):
+        scores = scores_of(fitted, points, stacked_targets, point_masks,
+                           grid_sum)
         if (retry_keys is None or cfg.gate_retries <= 0
                 or cfg.gate_threshold is None):
             return fitted, scores
         failed = ~(scores >= cfg.gate_threshold) & valid_mask
         fresh = _init_fresh(model, retry_keys)
         refitted, _ = refit(fresh, points, stacked_targets, failed,
-                            point_masks)
+                            point_masks, grid_sum=grid_sum)
         retry_scores = scores_of(refitted, points, stacked_targets,
-                                 point_masks)
+                                 point_masks, grid_sum)
         fitted = T.tree_where(failed, refitted, fitted)
         return fitted, torch.where(failed, retry_scores, scores)
 
@@ -353,35 +383,64 @@ def make_gate_retry_fn(model, cfg: FitConfig, per_image_points: bool = False,
 
 def make_batched_fit_fn(model, cfg: FitConfig, per_image_points: bool = False,
                         with_point_masks: bool = False,
-                        loss_fn: Optional[Callable] = None) -> Callable:
+                        loss_fn: Optional[Callable] = None,
+                        mesh=None) -> Callable:
     """Build the reusable batched fit ``run(stacked_params, points,
     stacked_targets, valid_mask=None, retry_keys=None, point_masks=None)
     -> (fitted, aux)``, with the IoU gate and fresh-init retry when
     ``cfg.gate_threshold`` is set. With ``cfg.fused`` the images are the
     kernel's leading axis; their points are shared, or one set per image
-    with ``per_image_points``."""
+    with ``per_image_points``.
+
+    ``mesh`` (``parallel.mesh.Mesh``): every rank passes the whole batch
+    and gets the whole result; each fits its block of the images (the
+    'data' axis) on its block of the points (the 'grid' axis), the point
+    weights, the per-step loss and grads and the gate's IoU summed over
+    the grid axis."""
     engine = _make_batched_engine(model, cfg, per_image_points, loss_fn)
     gate_retry = make_gate_retry_fn(model, cfg, per_image_points,
                                     with_point_masks, loss_fn)
 
-    def run(stacked_params, points, stacked_targets, valid_mask=None,
-            retry_keys=None, point_masks=None):
+    def run_local(stacked_params, points, stacked_targets, valid_mask,
+                  retry_keys, point_masks, grid_sum):
         batch = stacked_targets.shape[0]
         dev = stacked_targets.device
         if valid_mask is None:
             valid_mask = torch.ones((batch,), dtype=torch.bool, device=dev)
         fitted, aux = engine(stacked_params, points, stacked_targets,
-                             valid_mask, point_masks)
+                             valid_mask, point_masks, grid_sum=grid_sum)
         gate = torch.ones((batch,), dtype=torch.bool, device=dev)
         if cfg.gate_threshold is not None:
             fitted, scores = gate_retry(fitted, points, stacked_targets,
                                         valid_mask, retry_keys=retry_keys,
-                                        point_masks=point_masks)
+                                        point_masks=point_masks,
+                                        grid_sum=grid_sum)
             aux["gate_iou"] = scores
             gate = scores >= cfg.gate_threshold
         aux["gate_pass"] = gate
         aux["valid"] = valid_mask
         return fitted, aux
+
+    def run(stacked_params, points, stacked_targets, valid_mask=None,
+            retry_keys=None, point_masks=None):
+        if mesh is None:
+            return run_local(stacked_params, points, stacked_targets,
+                             valid_mask, retry_keys, point_masks, None)
+        batch, n = stacked_targets.shape[:2]
+        ds, gs = mesh.local("data", batch), mesh.local("grid", n)
+        fitted, aux = run_local(
+            T.tree_map(lambda x: x[ds], stacked_params),
+            points[ds, gs] if points.ndim == 3 else points[gs],
+            stacked_targets[ds, gs],
+            None if valid_mask is None else valid_mask[ds],
+            None if retry_keys is None else retry_keys[ds],
+            None if point_masks is None else point_masks[ds, gs],
+            mesh.reducer("grid", n))
+        if not mesh.splits("data", batch):
+            return fitted, aux
+        return mesh.gather_tree("data", fitted), {
+            k: mesh.gather("data", v) if isinstance(v, torch.Tensor) else v
+            for k, v in aux.items()}
 
     return run
 
@@ -391,17 +450,18 @@ def fit_priors_batched(model, stacked_params: Params, points: torch.Tensor,
                        retry_keys: Optional[Sequence] = None,
                        valid_mask: Optional[torch.Tensor] = None,
                        loss_fn: Optional[Callable] = None,
-                       point_masks: Optional[torch.Tensor] = None
-                       ) -> Tuple[Params, dict]:
+                       point_masks: Optional[torch.Tensor] = None,
+                       mesh=None) -> Tuple[Params, dict]:
     """Fit all images' priors at once: ``stacked_params`` with a leading
     image axis, ``points`` shared (N, C) or per image (B, N, C),
     ``stacked_targets`` (B, N, 1), ``valid_mask`` (B,) bool (invalid
     images pass through), ``retry_keys`` (B,) seeds or generators for the
-    gated retry, ``point_masks`` (B, N) bool for padded points."""
+    gated retry, ``point_masks`` (B, N) bool for padded points. ``mesh``:
+    see :func:`make_batched_fit_fn`."""
     run = make_batched_fit_fn(model, cfg,
                               per_image_points=points.ndim == 3,
                               with_point_masks=point_masks is not None,
-                              loss_fn=loss_fn)
+                              loss_fn=loss_fn, mesh=mesh)
     return run(stacked_params, points, stacked_targets, valid_mask=valid_mask,
                retry_keys=retry_keys, point_masks=point_masks)
 

@@ -10,6 +10,16 @@ params and the gathered prior slices (the convexity clip after the
 update), and scatters the slices back. Nothing in a step waits on the
 host: the NaN guard and the padded-sample mask are device tensors
 combined with ``torch.where``.
+
+On a mesh (``mesh=``) every rank holds the whole state and gets the whole
+batch; it runs the seg net on its block of the batch's images (the 'data'
+axis; batch norm over the whole batch) and the priors on their block of
+the points (the 'grid' axis). The outputs are gathered so that every rank
+computes the single-device loss on the whole batch; each rank's grads
+hold its blocks' share, and the seg grads are summed over the data axis
+(the grid ranks of a data row hold the same ones), the prior grads over
+the grid axis and gathered over the data axis. Every rank then takes the
+same update, so the states stay equal.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from awesome_tpu_torch.measures.losses import (
     fbms_joint_loss,
     unaries_weighted_loss,
 )
+from awesome_tpu_torch.nn.conv import batch_stats_over
 from awesome_tpu_torch.nn.module import make_generator
 
 Params = Any
@@ -76,10 +87,15 @@ def _seg_init(wrapper, gen: torch.Generator, cfg: JointTrainConfig,
 
 
 def _seg_forward(wrapper, cfg: JointTrainConfig, seg_params, seg_state,
-                 batch):
+                 batch, rows=slice(None), mesh=None):
     """The processed segmentation output (B, H, W, C) and the new seg
-    state."""
-    image, feats = batch["image"], batch["features"]
+    state; ``rows``: this rank's block of the batch, its batch norm over
+    ``mesh``'s data axis (see ``nn.conv.batch_stats_over``)."""
+    image, feats = batch["image"][rows], batch["features"][rows]
+    if mesh is not None:
+        with batch_stats_over(mesh):
+            return _seg_forward(wrapper, cfg, seg_params, seg_state,
+                                {"image": image, "features": feats})
     if wrapper.seg_stateful:
         seg_logits, new_seg_state = wrapper.segmentation_module.apply(
             seg_params, seg_state, image, feats,
@@ -138,43 +154,95 @@ def _default_loss_fn(cfg: JointTrainConfig, has_prior: bool) -> Callable:
     return loss_fn
 
 
+class _Blocks:
+    """This rank's blocks of a batch of ``b`` images of ``n`` points on a
+    mesh (the whole batch without one), and the collectives of a step."""
+
+    def __init__(self, mesh, b: int, n: int):
+        self.mesh = mesh
+        self.data_split = mesh is not None and mesh.splits("data", b)
+        self.grid_split = mesh is not None and mesh.splits("grid", n)
+        self.rows = mesh.local("data", b) if self.data_split else slice(None)
+        self.pts = mesh.local("grid", n) if self.grid_split else slice(None)
+
+    def seg_mesh(self):
+        """The mesh the seg net's batch norm reduces over, or None."""
+        return self.mesh if self.data_split else None
+
+    def points(self, grid: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a (N, C) or per-image (B, N, C) grid."""
+        if grid.ndim == 3:
+            return grid[self.rows, self.pts]
+        return grid[self.pts]
+
+    def whole_points(self, out: torch.Tensor) -> torch.Tensor:
+        """(b, n_block, ...) prior outputs -> (b, N, ...)."""
+        if not self.grid_split:
+            return out
+        return self.mesh.gather_grad("grid", out, dim=1)
+
+    def whole_batch(self, out: torch.Tensor) -> torch.Tensor:
+        if not self.data_split:
+            return out
+        return self.mesh.gather_grad("data", out, dim=0)
+
+    def seg_grads(self, grads):
+        if not self.data_split:
+            return grads
+        return self.mesh.sum_over_tree("data", grads)
+
+    def prior_grads(self, grads):
+        """This block's prior grads -> the whole batch's."""
+        if self.grid_split:
+            grads = self.mesh.sum_over_tree("grid", grads)
+        if self.data_split:
+            grads = self.mesh.gather_tree("data", grads)
+        return grads
+
+
 def make_joint_train_step(wrapper, cfg: JointTrainConfig,
-                          loss_fn: Optional[Callable] = None) -> Callable:
+                          loss_fn: Optional[Callable] = None,
+                          mesh=None) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)``.
 
     ``batch``: 'image' (B, H, W, C), 'features' (B, H, W, F), 'grid' (B, N,
     2) or (N, 2) shared, 'target' (B, H, W, 1), 'index' (B,) int (the
     images' prior slices); optional 'weight' (B,) (0 for padded samples)
-    and 'lr_scale'."""
+    and 'lr_scale'. ``mesh``: see the module docstring."""
     seg_upd = _optim(cfg.optimizer)[1]
     prior_upd = _optim(cfg.prior_optimizer)[1]
     prior = wrapper.prior_module
     has_prior = prior is not None
     loss_fn = loss_fn or _default_loss_fn(cfg, has_prior)
 
-    def forward(seg_params, prior_batch, seg_state, batch):
-        grid = batch["grid"]
+    def forward(seg_params, prior_batch, seg_state, batch, blocks):
+        grid = blocks.points(batch["grid"])
         seg, new_seg_state = _seg_forward(wrapper, cfg, seg_params,
-                                          seg_state, batch)
+                                          seg_state, batch, blocks.rows,
+                                          blocks.seg_mesh())
         if not has_prior:
-            return seg, new_seg_state
+            return blocks.whole_batch(seg), new_seg_state
         prior_pts = torch.func.vmap(
             lambda pp, g: wrapper.process_prior_output(prior.apply(pp, g)),
             in_dims=(0, 0 if grid.ndim == 3 else None))(prior_batch, grid)
+        prior_pts = blocks.whole_points(prior_pts)
         out = torch.cat([seg, prior_pts.reshape(seg.shape)], dim=-1)
-        return out, new_seg_state
+        return blocks.whole_batch(out), new_seg_state
 
     def step(state: JointTrainState, batch):
         idx = torch.as_tensor(batch["index"], dtype=torch.long,
                               device=batch["image"].device)
         lr_scale = batch.get("lr_scale", 1.0)
         weight = batch.get("weight")
+        blocks = _Blocks(mesh, idx.shape[0], batch["grid"].shape[-2])
         prior_batch = T.tree_map(lambda x: x[idx], state.prior_params)
         prior_opt_batch = T.tree_map(lambda x: x[idx] if x.ndim > 0 else x,
                                      state.prior_opt)
+        prior_block = T.tree_map(lambda x: x[blocks.rows], prior_batch)
+
         def compute_loss(seg_params, prior_params):
             out, new_seg_state = forward(seg_params, prior_params,
-                                         state.seg_state, batch)
+                                         state.seg_state, batch, blocks)
             if weight is not None:
                 res = loss_fn(out, batch["target"], weight)
             else:
@@ -184,7 +252,9 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
             return res["loss"], (res, new_seg_state)
 
         loss, (res, new_seg_state), seg_g, prior_g = _value_and_grads(
-            compute_loss, state.seg_params, prior_batch)
+            compute_loss, state.seg_params, prior_block)
+        seg_g = blocks.seg_grads(seg_g)
+        prior_g = blocks.prior_grads(prior_g)
         metrics = {k: v.detach() for k, v in res.items()}
         ok = _finite(loss, cfg)
         new_seg, new_seg_opt = _seg_update(cfg, seg_upd, state, seg_g, ok,
@@ -285,13 +355,14 @@ def epoch_batches(num_images: int, batch_size: int, rng
 
 
 def make_joint_epoch_fn(wrapper, cfg: JointTrainConfig,
-                        loss_fn: Optional[Callable] = None) -> Callable:
+                        loss_fn: Optional[Callable] = None,
+                        mesh=None) -> Callable:
     """Build ``epoch(state, data, idx_mat, wgt_mat, lr_scale=1.0) ->
     (state, metrics)``: the joint step over the batch plan, each batch
     gathered from the device-resident ``data`` ('image' (T, H, W, C),
     'features', 'target', 'grid' (N, 2) shared or (T, N, 2)); the metrics
     come back stacked, one value per batch."""
-    step = make_joint_train_step(wrapper, cfg, loss_fn)
+    step = make_joint_train_step(wrapper, cfg, loss_fn, mesh)
 
     def epoch(state, data, idx_mat, wgt_mat, lr_scale=1.0):
         dev = data["image"].device
@@ -411,8 +482,8 @@ def _object_losses(cfg: JointTrainConfig, seg, prior, tgt, labeled):
     return seg_loss + pen
 
 
-def make_multi_object_train_step(wrapper, cfg: JointTrainConfig
-                                 ) -> Callable:
+def make_multi_object_train_step(wrapper, cfg: JointTrainConfig,
+                                 mesh=None) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)`` for multi-object
     joint training.
 
@@ -422,7 +493,8 @@ def make_multi_object_train_step(wrapper, cfg: JointTrainConfig
     'weight' (B,) and 'lr_scale'. The loss of each image is the mean of
     its active objects' losses (:func:`_object_losses`), then the
     weighted mean over the batch. Inactive slots, weight-0 samples and a
-    non-finite step leave the children and their state as they were."""
+    non-finite step leave the children and their state as they were.
+    ``mesh``: see the module docstring."""
     seg_upd = _optim(cfg.optimizer)[1]
     prior_upd = _optim(cfg.prior_optimizer)[1]
     mp = wrapper.prior_module
@@ -436,13 +508,19 @@ def make_multi_object_train_step(wrapper, cfg: JointTrainConfig
                               state.prior_params["children"])
         opt_batch = T.tree_map(lambda x: x[idx], state.prior_opt)
         active_b = state.active[idx]
+        blocks = _Blocks(mesh, idx.shape[0], batch["grid"].shape[-2])
+        child_block = T.tree_map(lambda x: x[blocks.rows], children)
 
         def compute_loss(seg_params, children_):
             seg, new_seg_state = _seg_forward(wrapper, cfg, seg_params,
-                                              state.seg_state, batch)
-            prior = wrapper.process_prior_output(
-                mp.apply_images(children_, batch["grid"]))
-            per_obj = _object_losses(cfg, seg, prior.reshape(seg.shape),
+                                              state.seg_state, batch,
+                                              blocks.rows, blocks.seg_mesh())
+            prior = blocks.whole_points(wrapper.process_prior_output(
+                mp.apply_images(children_, blocks.points(batch["grid"]))))
+            seg = blocks.whole_batch(seg)
+            prior = blocks.whole_batch(prior.reshape(
+                prior.shape[:1] + seg.shape[1:]))
+            per_obj = _object_losses(cfg, seg, prior,
                                      batch["target_obj"], batch["labeled"])
             a = active_b.to(per_obj.dtype)
             per = (per_obj * a).sum(dim=1) / torch.clamp_min(a.sum(dim=1),
@@ -455,7 +533,9 @@ def make_multi_object_train_step(wrapper, cfg: JointTrainConfig
             return loss, new_seg_state
 
         loss, new_seg_state, seg_g, child_g = _value_and_grads(
-            compute_loss, state.seg_params, children)
+            compute_loss, state.seg_params, child_block)
+        seg_g = blocks.seg_grads(seg_g)
+        child_g = blocks.prior_grads(child_g)
         ok = _finite(loss, cfg)
         new_seg, new_seg_opt = _seg_update(cfg, seg_upd, state, seg_g, ok,
                                            lr_scale)
@@ -484,13 +564,14 @@ def make_multi_object_train_step(wrapper, cfg: JointTrainConfig
     return step
 
 
-def make_multi_object_epoch_fn(wrapper, cfg: JointTrainConfig) -> Callable:
+def make_multi_object_epoch_fn(wrapper, cfg: JointTrainConfig,
+                               mesh=None) -> Callable:
     """Build ``epoch(state, data, idx_mat, wgt_mat, lr_scale=1.0) ->
     (state, metrics)``: the multi-object step over the batch plan, each
     batch gathered from ``data`` ('image' (T, H, W, C), 'features',
     'grid' (N, 2) or (T, N, 2), 'target_obj' (T, H, W, K), 'labeled' (T,
     H, W)); the metrics come back stacked, one value per batch."""
-    step = make_multi_object_train_step(wrapper, cfg)
+    step = make_multi_object_train_step(wrapper, cfg, mesh)
 
     def epoch(state, data, idx_mat, wgt_mat, lr_scale=1.0):
         dev = data["image"].device

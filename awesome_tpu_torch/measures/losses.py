@@ -50,28 +50,32 @@ def total_variation(img, reduction: str = "mean"):
 
 
 def unaries_weight(target: torch.Tensor, mode: str = "none",
-                   ratio: float = 1.0, mask=None) -> torch.Tensor:
+                   ratio: float = 1.0, mask=None,
+                   count_sum: Optional[Callable] = None) -> torch.Tensor:
     """Class-balancing pixel weights from soft unaries.
 
     Foreground is encoded as 0: fg = target < 0.5, bg = target >= 0.5.
     Modes: 'none' (all ones), 'equal' (fg weighted bg/fg), 'ratio'
     (fg weighted (bg/fg - 1) * ratio + 1), 'sssdms' (fg weighted
     round((bg/fg)/10) + 1). ``mask``: padded points get weight 0 and are
-    left out of the class counts.
+    left out of the class counts. ``count_sum``: sums a class count over
+    the ranks that hold the other points of the image (a mesh's grid
+    axis), so the weights are those of the whole image.
     """
     dt = target.dtype
     if mode == "none":
         ones = torch.ones_like(target)
         return ones if mask is None else ones * mask.to(dt)
     is_bg = (target >= 0.5).to(dt)
+    total = count_sum or (lambda c: c)
     if mask is not None:
         m = torch.broadcast_to(mask.to(dt), target.shape)
-        bg_count = (is_bg * m).sum()
-        fg_count = torch.clamp_min(((1.0 - is_bg) * m).sum(), 1.0)
+        bg_count = total((is_bg * m).sum())
+        fg_count = torch.clamp_min(total(((1.0 - is_bg) * m).sum()), 1.0)
     else:
         m = None
-        bg_count = is_bg.sum()
-        fg_count = torch.clamp_min((1.0 - is_bg).sum(), 1.0)
+        bg_count = total(is_bg.sum())
+        fg_count = torch.clamp_min(total((1.0 - is_bg).sum()), 1.0)
     cc = bg_count / fg_count
     if mode == "equal":
         w_fg = cc

@@ -5,7 +5,7 @@ their host-side numpy twins for per-image loops.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -15,13 +15,16 @@ import torch.nn.functional as F
 def iou(output, target, invert: bool = False,
         noneclass: Optional[float] = None,
         noneclass_replacement: float = 0.0,
-        eps: float = 0.0) -> torch.Tensor:
+        eps: float = 0.0,
+        count_sum: Optional[Callable] = None) -> torch.Tensor:
     """Binary intersection-over-union of thresholded masks (a 0-d tensor,
     no host sync).
 
     ``invert=True`` scores the complement — against foreground when fg is
     encoded as 0. An empty union scores 0.0, as sklearn's
-    ``jaccard_score(average='binary')`` does.
+    ``jaccard_score(average='binary')`` does. ``count_sum``: sums the
+    (2,) intersection and union counts over the ranks that hold the other
+    pixels of the masks (a mesh's grid axis) before the ratio.
     """
     o = torch.as_tensor(output).to(torch.float32)
     t = torch.as_tensor(target).to(torch.float32)
@@ -34,8 +37,11 @@ def iou(output, target, invert: bool = False,
         t = 1.0 - t
     o = o > 0.5
     t = t > 0.5
-    inter = torch.logical_and(o, t).sum().to(torch.float32)
-    union = torch.logical_or(o, t).sum().to(torch.float32)
+    counts = torch.stack([torch.logical_and(o, t).sum(),
+                          torch.logical_or(o, t).sum()]).to(torch.float32)
+    if count_sum is not None:
+        counts = count_sum(counts)
+    inter, union = counts[0], counts[1]
     return torch.where(union > 0,
                        inter / torch.clamp_min(union, eps + 1.0e-30),
                        torch.zeros_like(union))

@@ -11,6 +11,7 @@ default: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -119,17 +120,50 @@ def batchnorm_init(channels: int, device: DeviceLike = None):
              "count": torch.zeros((), dtype=torch.int32, device=dev)})
 
 
+# the mesh whose data axis holds the other images of the batch, while
+# ``batch_stats_over`` is active
+_BATCH_MESH = None
+
+
+@contextlib.contextmanager
+def batch_stats_over(mesh):
+    """Within the block, training-mode batch norm takes its batch mean and
+    variance over the images of every rank of ``mesh``'s data axis (this
+    rank holds one block of the batch), as the JAX package's step does
+    over a batch sharded on 'data'. ``None``: this rank's images alone."""
+    global _BATCH_MESH
+    prev, _BATCH_MESH = _BATCH_MESH, mesh
+    try:
+        yield
+    finally:
+        _BATCH_MESH = prev
+
+
+def _batch_moments(x: torch.Tensor):
+    """(mean, biased variance, count) over (B, H, W); over the whole
+    batch of the data axis inside :func:`batch_stats_over`."""
+    mesh = _BATCH_MESH
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    if mesh is None:
+        mean = x.mean(dim=(0, 1, 2))
+        return mean, torch.square(x - mean).mean(dim=(0, 1, 2)), n
+    n = n * mesh.shape["data"]
+    mean = mesh.sum_over_grad("data", x.sum(dim=(0, 1, 2))) / n
+    sq = mesh.sum_over_grad("data",
+                            torch.square(x - mean).sum(dim=(0, 1, 2)))
+    return mean, sq / n, n
+
+
 def batchnorm_apply(params, state, x: torch.Tensor, train: bool,
                     momentum: float = 0.1, eps: float = 1e-5):
     """torch BatchNorm2d semantics on NHWC input; returns (y, new_state).
 
     ``train=True`` normalizes with the batch's biased variance and moves
-    the running stats towards the batch mean and the unbiased variance;
+    the running stats towards the batch mean and the unbiased variance
+    (over the mesh's whole batch inside :func:`batch_stats_over`);
     ``train=False`` normalizes with the running stats."""
     if train:
-        mean = x.mean(dim=(0, 1, 2))
-        var = torch.square(x - mean).mean(dim=(0, 1, 2))
-        n = x.shape[0] * x.shape[1] * x.shape[2]
+        mean, var, n = _batch_moments(x)
         with torch.no_grad():
             unbiased = var * n / max(n - 1, 1)
             new_state = {

@@ -12,6 +12,13 @@ FBMS sequence dataset) runs one of the FBMS experiment families through
 ``runner/fbms_runner.py`` (:func:`main_fbms`). It runs on the card;
 ``--device cpu`` runs it on the CPU. A config file may be one this package
 or the JAX package wrote, or an unmodified reference YAML.
+
+``--mesh-shape "[2, 2]"`` (``mesh_shape: [data, grid]``) runs the experiment on
+a device mesh: this entry point starts one process per mesh position
+(``parallel/launch.py``; the ranks take the cards round robin, ``-1``
+absorbs the card count) and every rank runs the experiment (SPMD); rank 0
+writes the run folder. Under ``torchrun`` the ranks are torchrun's and
+``-1`` absorbs its world size.
 """
 from __future__ import annotations
 
@@ -157,12 +164,38 @@ def main_fbms(cfg) -> Optional[str]:
     return out
 
 
+def mesh_world(cfg) -> int:
+    """The number of ranks ``cfg.mesh_shape`` asks for: ``-1`` absorbs
+    the card count (one on the CPU)."""
+    import torch
+
+    from awesome_tpu_torch.parallel.mesh import _resolve_shape
+
+    cards = torch.cuda.device_count() if str(cfg.device).startswith(
+        "cuda") else 1
+    d, g = _resolve_shape(cfg.mesh_shape, max(cards, 1))
+    return d * g
+
+
+def _rank_main(cfg) -> Optional[str]:
+    return main(cfg)
+
+
 def main(cfg) -> Optional[str]:
-    """Run the experiment of ``cfg``; returns the run folder."""
+    """Run the experiment of ``cfg``; returns the run folder. With
+    ``mesh_shape`` and no process group yet, starts the mesh's ranks and
+    runs it in each of them."""
+    from awesome_tpu_torch.parallel.launch import in_process_group, spawn
     from awesome_tpu_torch.runner.runner import AwesomeRunner
     from awesome_tpu_torch.utils.tensorboard import Tensorboard
 
     _resolve_resume_folder(cfg)
+    if cfg.mesh_shape and not in_process_group():
+        world = mesh_world(cfg)
+        if world > 1:
+            logging.info("mesh_shape %s: starting %d ranks", cfg.mesh_shape,
+                         world)
+            return spawn(_rank_main, world, (cfg,), device=cfg.device)[0]
     if _is_fbms(cfg):
         return main_fbms(cfg)
     runner = AwesomeRunner(cfg)
@@ -181,14 +214,34 @@ def main(cfg) -> Optional[str]:
     metrics = runner.evaluate()
     logging.info("Eval: %s", metrics)
     out = runner.save_results()
-    tb = Tensorboard(os.path.join(out, "tb"))
-    tb.attach_to_tracker(runner.tracker)
-    tb.log_config_markdown(cfg)
-    tb.close()
+    if runner.is_root:
+        tb = Tensorboard(os.path.join(out, "tb"))
+        tb.attach_to_tracker(runner.tracker)
+        tb.log_config_markdown(cfg)
+        tb.close()
     logging.info("Results in %s", out)
     return out
 
 
+def join_torchrun_world(cfg) -> None:
+    """Under ``torchrun`` (its ``WORLD_SIZE`` > 1): join its process group
+    on this rank's card (or the CPU) and take rank 0's run timestamp, so
+    every rank names the same run folder."""
+    import torch.distributed as dist
+
+    from awesome_tpu_torch.parallel.launch import init_rank
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return
+    init_rank(int(os.environ["RANK"]), world, "env://", cfg.device)
+    stamp = [cfg.timestamp]
+    dist.broadcast_object_list(stamp, src=0)
+    cfg.timestamp = stamp[0]
+
+
 if __name__ == "__main__":
     config_logging()
-    main(get_config())
+    config = get_config()
+    join_torchrun_world(config)
+    main(config)

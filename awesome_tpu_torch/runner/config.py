@@ -318,8 +318,9 @@ class AwesomeConfig(Config):
     dtype: str = "float32"
     runs_path: str = "./runs"
     output_folder: Optional[str] = None
-    # multi-device [data, grid] mesh shape; the runner raises for any value
-    # but None until parallel/mesh.py is ported (ROADMAP Queue 1 item 8)
+    # device mesh [data, grid] (parallel/mesh.py): [n] puts all on data,
+    # -1 absorbs the rest of the ranks; python -m awesome_tpu_torch.run
+    # starts one process per position. None = one device
     mesh_shape: Optional[List[int]] = None
     # auto-resume: continue training from the newest full train-state
     # checkpoint in <output_folder>/checkpoints (the runner's nth-epoch

@@ -21,8 +21,11 @@ Composition-root port of the FBMS paths of `awesome/run/awesome_runner.py`
 
 Every tensor lives on the runner's ``device`` (the card unless the caller
 passes ``"cpu"``); model inits draw from ``torch.Generator``s seeded by
-the config's seed. A device mesh, which the JAX runner has, raises
-``NotImplementedError`` naming its ROADMAP item.
+the config's seed. ``mesh_shape`` runs the spatio-temporal fit (each
+frame's points over 'grid') and the joint and multi-object loops (a
+batch's frames over 'data', the priors' points over 'grid') on a device
+mesh (``parallel/mesh.py``); every rank runs every method and holds the
+whole state, and only rank 0 writes checkpoints, frames and run folders.
 """
 from __future__ import annotations
 
@@ -44,8 +47,6 @@ from awesome_tpu_torch.fit.trainer import (
 )
 
 logger = logging.getLogger(__name__)
-
-_ITEM_MESH = "parallel/mesh.py, ROADMAP.md Queue 1 item 8"
 
 
 @dataclasses.dataclass
@@ -70,7 +71,7 @@ class FBMSExperimentConfig:
     downscale: int = 1
     seed: int = 42
     # [data, grid] device-mesh shape (AwesomeConfig.mesh_shape semantics);
-    # None = single device, the only value this runner takes
+    # None = single device
     mesh_shape: Optional[List[int]] = None
 
 
@@ -493,11 +494,19 @@ class FBMSRunner:
         labeled = np.ones((t, un.shape[1]), bool)
         return un, labeled
 
-    def _check_single_device(self) -> None:
-        if self.config.mesh_shape is not None:
-            raise NotImplementedError(
-                f"mesh_shape: {_ITEM_MESH} is not ported yet; leave "
-                "mesh_shape unset for one device")
+    def _mesh(self):
+        """The config's device mesh (built once; None = one device)."""
+        if not hasattr(self, "_mesh_cache"):
+            from awesome_tpu_torch.parallel.mesh import mesh_from_config
+
+            self._mesh_cache = mesh_from_config(self.config, self.device)
+        return self._mesh_cache
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this process writes files: no mesh, or its rank 0."""
+        mesh = self._mesh()
+        return mesh is None or mesh.is_root
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -509,7 +518,6 @@ class FBMSRunner:
             sequence_points,
         )
 
-        self._check_single_device()
         cfg = self.config
         if cfg.frame_noise_percentage is not None:
             # noisy-st family: dense unaries with frame-level garbage
@@ -551,6 +559,7 @@ class FBMSRunner:
             self._tensor(labeled),
             fit_cfg,
             num_epochs=cfg.num_epochs,
+            mesh=self._mesh(),  # each frame's points over 'grid'
         )
         return {
             "epoch_loss": aux["epoch_loss"].cpu().numpy(),
@@ -575,6 +584,8 @@ class FBMSRunner:
         for k, v in (metrics or self.evaluate()).items():
             tracker.epoch_metric(k, v, "eval")
         tracker.tick_epoch()
+        if not self.is_root:
+            return out
         return persist_run(out, acfg, tracker, self.params,
                            {k: 0 for k in self.params})
 
@@ -591,6 +602,8 @@ class FBMSRunner:
         if getattr(self, "joint_tracker", None) is None:
             raise ValueError("no joint training has run")
         out = out or self._out_dir()
+        if not self.is_root:
+            return out
         state = self.joint_state
         # multi-object priors carry (frame, slot) axes
         prior_axes = 2 if isinstance(state, MultiObjectTrainState) else 1
@@ -839,7 +852,8 @@ class FBMSRunner:
 
         return run_with_emergency(
             lambda: fn(**kwargs),
-            os.path.join(ckdir, "emergency") if ckdir else None,
+            os.path.join(ckdir, "emergency") if ckdir and self.is_root
+            else None,
             _state,
         )
 
@@ -995,7 +1009,8 @@ class FBMSRunner:
                 resumed_stopped = bool(rex.get("stopped_early"))
         if pretrain_steps and start_epoch == 0:
             state = fit_children(state, pretrain_steps, state.active)
-        epoch_fn = make_multi_object_epoch_fn(wrapper, cfg)
+        epoch_fn = make_multi_object_epoch_fn(wrapper, cfg,
+                                              mesh=self._mesh())
 
         def record_eval(epoch: int, st) -> None:
             """Per-object eval flattened into tracker series (series
@@ -1173,9 +1188,7 @@ class FBMSRunner:
 
     def train_joint(self, **kwargs) -> Dict:
         """Emergency-dump wrapper around :meth:`_train_joint_impl`
-        (see its docstring for the full contract). A device mesh raises
-        here, before anything trains."""
-        self._check_single_device()
+        (see its docstring for the full contract)."""
         return self._run_with_emergency(
             self._train_joint_impl, "joint_state", kwargs
         )
@@ -1285,7 +1298,8 @@ class FBMSRunner:
                 state, start_epoch, rex = resumed
                 tracker = self.joint_tracker
                 resumed_stopped = bool(rex.get("stopped_early"))
-        epoch_fn = make_joint_epoch_fn(wrapper, cfg)
+        # on a mesh: each batch's frames over 'data', points over 'grid'
+        epoch_fn = make_joint_epoch_fn(wrapper, cfg, mesh=self._mesh())
 
         data = {
             "image": self._tensor(images),
@@ -1410,6 +1424,8 @@ class FBMSRunner:
         joint training (`awesome/run/awesome_runner.py:304-333`)."""
         from awesome_tpu_torch.runner.functions import save_result
 
+        if not self.is_root:
+            return
         state = self.joint_state
         wrapper = self.joint_wrapper
         grid = self._grid()
@@ -1445,13 +1461,15 @@ class FBMSRunner:
         When ``epoch`` is given, the FULL train state (seg/prior params,
         both optimizers' moments, seg batch-norm state) and the host
         schedule state ride along, making the checkpoint RESUMABLE
-        (``train_joint(resume=True)``)."""
+        (``train_joint(resume=True)``). On a mesh only rank 0 writes."""
         from awesome_tpu_torch.fit.checkpoint import (
             AgentCheckpoint,
             atomic_dir,
             save_pytree,
         )
 
+        if not self.is_root:
+            return
         extra = {}
         if epoch is not None:
             extra["epoch"] = int(epoch)

@@ -13,9 +13,15 @@ shared seg net)), the image pipeline (``dataset_args['dimension'] ==
 '3d'``: CNNNet or UNet per image on the dense grid, every image padded to
 one (Hmax, Wmax) bucket, the prior on the clean xy grid), and every
 ``xytype`` ('xy', 'feat', 'featxy', 'edge', 'edgexy'; the feature ones
-through ``runner/sss_extractor.py``). A device mesh raises
-``NotImplementedError`` naming its ROADMAP item. Every tensor lives on
+through ``runner/sss_extractor.py``). Every tensor lives on
 ``config.device`` (the card unless the config says ``cpu``).
+
+``mesh_shape`` runs the runner on a device mesh (``parallel/mesh.py``):
+every rank runs every method (SPMD) and holds the whole state; the
+pretrain's batched fit and each training segment split the images over
+'data' and, where the loss is a sum over pixels, the pixels over 'grid'.
+Only rank 0 writes checkpoints, the pretrain state, images and the run
+folder.
 """
 from __future__ import annotations
 
@@ -42,8 +48,6 @@ from awesome_tpu_torch.serialization.jsonconv import (
 )
 
 logger = logging.getLogger(__name__)
-
-_ITEM_MESH = "parallel/mesh.py, ROADMAP.md Queue 1 item 8"
 
 
 def _jax_order(tree, path=()):
@@ -126,9 +130,17 @@ class Runner:
         seed_all(config.seed)
         self.output_folder = config.output_folder or os.path.join(
             config.runs_path, config.run_name)
+        self.mesh = None
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this process writes files: no mesh, or its rank 0."""
+        return self.mesh is None or self.mesh.is_root
 
     def store_config(self) -> None:
-        save_yaml(self.config, os.path.join(self.output_folder, "config.yaml"))
+        if self.is_root:
+            save_yaml(self.config,
+                      os.path.join(self.output_folder, "config.yaml"))
 
     def build(self) -> None:  # pragma: no cover - interface
         raise NotImplementedError
@@ -155,7 +167,6 @@ class AwesomeRunner(Runner):
 
     def __init__(self, config: AwesomeConfig):
         super().__init__(config)
-        self._check_supported()
         self.device = resolve_device(config.device)
         self.dataset = None
         self.wrapper = None
@@ -175,15 +186,6 @@ class AwesomeRunner(Runner):
         self._extractor = None
         self.image_mode = False
         self.seg_stateful = False
-
-    def _check_supported(self) -> None:
-        """Options of the JAX runner this port does not have yet raise here,
-        before anything is built."""
-        cfg = self.config
-        if cfg.mesh_shape is not None:
-            raise NotImplementedError(
-                f"mesh_shape: {_ITEM_MESH} is not ported yet; leave "
-                "mesh_shape unset for one device")
 
     # --- build -----------------------------------------------------------
     @staticmethod
@@ -353,7 +355,10 @@ class AwesomeRunner(Runner):
 
     def build(self) -> None:
         from awesome_tpu_torch.data.split import split_indices
+        from awesome_tpu_torch.parallel.mesh import mesh_from_config
 
+        # config-selected device mesh ('data' x 'grid'; None = one device)
+        self.mesh = mesh_from_config(self.config, self.device)
         self.build_dataset()
         shapes = [s.shape for s in self.samples]
         if self.image_mode:
@@ -705,7 +710,11 @@ class AwesomeRunner(Runner):
             self.output_folder, "pretrain_state")
         # force_pretrain: refit even when a state exists
         # (`agent/torch_agent.py:594` force_pretrain gate)
-        if not cfg.force_pretrain and pytree_exists(state_path):
+        found = not cfg.force_pretrain and pytree_exists(state_path)
+        if self.mesh is not None:
+            # every rank has looked before rank 0 may write the state
+            self.mesh.barrier()
+        if found:
             prior_stack = load_prior_cache(
                 state_path, template=self.stacked_params["prior"])
             self.stacked_params = dict(self.stacked_params, prior=prior_stack)
@@ -806,14 +815,16 @@ class AwesomeRunner(Runner):
                 point_masks=pmask_t)
             aux["gate_iou"] = scores
         else:
+            # on a mesh: the images over 'data', the points over 'grid'
             fitted, aux = fit_priors_batched(
                 prior_model, self.stacked_params["prior"], points, unaries_t,
                 fit_cfg, retry_keys=_seeds(cfg.seed + 7, n_img),
-                valid_mask=valid_t, point_masks=pmask_t)
+                valid_mask=valid_t, point_masks=pmask_t, mesh=self.mesh)
         self.stacked_params = dict(self.stacked_params, prior=fitted)
-        os.makedirs(os.path.dirname(state_path) or ".", exist_ok=True)
-        save_prior_cache(fitted, state_path)
-        logger.info("Pretrain state saved to %s", state_path)
+        if self.is_root:
+            os.makedirs(os.path.dirname(state_path) or ".", exist_ok=True)
+            save_prior_cache(fitted, state_path)
+            logger.info("Pretrain state saved to %s", state_path)
         if cfg.save_images_after_pretraining:
             self._dump_images(epoch=0, folder="prior",
                               indices=range(len(self.samples)))
@@ -907,7 +918,8 @@ class AwesomeRunner(Runner):
 
         return run_with_emergency(
             self._train_impl,
-            os.path.join(self.output_folder, "checkpoints", "emergency"),
+            os.path.join(self.output_folder, "checkpoints", "emergency")
+            if self.is_root else None,
             lambda: self.stacked_params,
             lambda: {"epoch": getattr(self.tracker, "epoch", None)},
         )
@@ -934,13 +946,13 @@ class AwesomeRunner(Runner):
                 params=self.stacked_params)  # pretrained priors if any
             self.stacked_params = state.params  # {'seg': shared, 'prior': B}
             segment = make_shared_pixel_segment_fn(self.wrapper, tcfg,
-                                                   seg_len)
+                                                   seg_len, mesh=self.mesh)
         else:
             state = pixel_train_init(self.wrapper, self.stacked_params, tcfg,
                                      stateful_seg=self.seg_stateful)
             segment = make_pixel_segment_fn(
                 self.wrapper, tcfg, seg_len, loss_impl=self._make_loss_impl(),
-                stateful_seg=self.seg_stateful)
+                stateful_seg=self.seg_stateful, mesh=self.mesh)
         kind = "shared" if shared_mode else "pixel"
         start_seg = 0
         start_epoch = 0
@@ -1105,14 +1117,17 @@ class AwesomeRunner(Runner):
         With the full train ``state`` and the absolute ``epoch`` the whole
         state (optimizer moments, plateau schedule, epoch counters) is
         saved alongside, making the checkpoint RESUMABLE
-        (``AwesomeConfig.resume``)."""
+        (``AwesomeConfig.resume``). On a mesh only rank 0 writes."""
         from awesome_tpu_torch.fit.checkpoint import (
             AgentCheckpoint,
             atomic_dir,
+            config_snapshot,
             save_prior_cache,
             save_pytree,
         )
         directory = os.path.join(self.output_folder, "checkpoints", tag)
+        if not self.is_root:
+            return directory
         params = (self.best_params
                   if tag == "best" and self.best_params is not None
                   else self.stacked_params)
@@ -1124,11 +1139,11 @@ class AwesomeRunner(Runner):
             extra["state_kind"] = state_kind
         # atomic swap: a preemption mid-save leaves the previous complete
         # checkpoint intact (tag or its .old twin) instead of a torn one
+        config, arrays = config_snapshot(self.config)
         with atomic_dir(directory) as tmp:
             AgentCheckpoint(name=self.config.run_name, params=params,
-                            tracker=self.tracker.to_dict(),
-                            config=to_jsonable(self.config),
-                            extra=extra).save(tmp)
+                            tracker=self.tracker.to_dict(), config=config,
+                            extra=extra, arrays=arrays).save(tmp)
             if state is not None:
                 save_pytree(tuple(state), os.path.join(tmp, "train_state"))
             if isinstance(params, dict) and "prior" in params:
@@ -1151,6 +1166,8 @@ class AwesomeRunner(Runner):
         Spec: `awesome/run/awesome_runner.py:304-333` _save_image."""
         from awesome_tpu_torch.runner.functions import save_result
 
+        if not self.is_root:
+            return
         outputs = self._forward_all()
         for index in indices:
             if index >= len(self.samples):
@@ -1368,7 +1385,7 @@ class AwesomeRunner(Runner):
         b = len(self.samples)
         chunk = max(1, min(chunk, b))
         run = make_batched_fit_fn(prior_model, cfg, per_image_points=True,
-                                  with_point_masks=True)
+                                  with_point_masks=True, mesh=self.mesh)
         fitted_chunks, gate_chunks = [], []
         valid_arr = np.asarray(valid)
         dev = self.device
@@ -1415,7 +1432,10 @@ class AwesomeRunner(Runner):
         return None
 
     def save_results(self) -> str:
-        """Persist config, tracker, and the stacked params."""
+        """Persist config, tracker, and the stacked params (rank 0 of a
+        mesh)."""
+        if not self.is_root:
+            return self.output_folder
         return persist_run(self.output_folder, self.config, self.tracker,
                            self.stacked_params, self._stacked_axes())
 

@@ -28,7 +28,7 @@ import inspect
 import json
 import os
 import types
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -319,31 +319,56 @@ def _pickle_decode(d):
 
 # --- core ----------------------------------------------------------------
 
-def to_jsonable(value: Any) -> Any:
-    """Recursively convert to JSON-safe structures with class tags."""
+def to_jsonable(value: Any, arrays: Optional[Dict[str, np.ndarray]] = None
+                ) -> Any:
+    """Recursively convert to JSON-safe structures with class tags.
+
+    ``arrays``: every array goes into this dict instead of the JSON (for a
+    binary ``.npz`` beside it), the JSON keeping its key (``"npz"``) and
+    dtype; :func:`inline_arrays` puts them back."""
     if value is None or isinstance(value, (bool, int, float, str)):
         return value
+    if arrays is not None and _is_array(value):
+        key = f"a{len(arrays)}"
+        arrays[key] = _host(value)
+        return {CLASS_KEY: "numpy.ndarray", "dtype": str(arrays[key].dtype),
+                "npz": key}
     for rule in _RULES:
         if rule.matches(value):
             return rule.encode(value)
     if isinstance(value, dict):
-        return {str(k): to_jsonable(v) for k, v in value.items()}
+        return {str(k): to_jsonable(v, arrays) for k, v in value.items()}
     if isinstance(value, list):
-        return [to_jsonable(v) for v in value]
+        return [to_jsonable(v, arrays) for v in value]
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
         out = {CLASS_KEY: class_name(value)}
         for f in dataclasses.fields(value):
-            out[f.name] = to_jsonable(getattr(value, f.name))
+            out[f.name] = to_jsonable(getattr(value, f.name), arrays)
         return out
     if hasattr(value, "__dict__"):
         out = {CLASS_KEY: class_name(value)}
         for k, v in vars(value).items():
             if not k.startswith("_"):
-                out[k] = to_jsonable(v)
+                out[k] = to_jsonable(v, arrays)
         return out
     # last resort: base64 pickle (the reference's pickle rule,
     # `awesome/serialization/rules/json_pickle_serialization_rule.py`)
     return _pickle_encode(value)
+
+
+def inline_arrays(data: Any, arrays) -> Any:
+    """The JSON of ``to_jsonable(value, arrays)`` with every array back in
+    place (as the ndarray itself, which :func:`from_jsonable` takes as it
+    is); ``arrays`` maps the keys to the arrays (a dict or an opened
+    ``.npz``)."""
+    if isinstance(data, list):
+        return [inline_arrays(v, arrays) for v in data]
+    if not isinstance(data, dict):
+        return data
+    if data.get(CLASS_KEY) == "numpy.ndarray" and "npz" in data:
+        return {CLASS_KEY: "numpy.ndarray", "dtype": data["dtype"],
+                "data": np.asarray(arrays[data["npz"]])}
+    return {k: inline_arrays(v, arrays) for k, v in data.items()}
 
 
 _DECODERS = {

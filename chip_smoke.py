@@ -173,17 +173,34 @@ Phases, each printing its own line (any failure exits nonzero):
     ``PriorCache`` of its fitted priors on the card with a bitwise
     save/load; ``assert_finite`` on the fitted trees and a backward NaN
     trapped by ``debug_guard``; the ``PhaseTimer`` report (run folders in
-    ``build/smoke_data/``);
-23. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
+    ``build/smoke_data/``); the checkpoint saves carry the in-memory
+    samples as one binary ``samples.npz`` each;
+23. the device mesh (``mesh_path``): two ranks on the card over gloo
+    (``parallel/launch.py``): the batched fused fit (bench model, 4
+    images at 480x640, the gate, 200 steps) on meshes (2, 1) and (1, 2)
+    against the single-process fit (on each, one step at the inits and
+    at the fitted params with each rank's K2 on its block of the images
+    and points within rtol 1e-5 in the loss and 5e-4 in the grads, the
+    first 30 steps' losses within rtol 1e-5, the final ones within 1e-2,
+    the same gate outcomes; (2, 1) bitwise where K2 tiles an image alike
+    at G = 2 and 4), K2 launches per rank, ms/step and the grid
+    ``all_reduce``'s share; the convexity runner on [2, 1] and [1, 2], 40
+    epochs, loss histories within rtol 2e-3, atol 2e-4 of one process,
+    one K4 and one K5 launch per rank per epoch; ``run_sharded --spawn``
+    with two workers on the card; ``dryrun_multichip(2)``; every rank's
+    backend (gloo) and device (a card) as its mesh holds them (run
+    folders in ``build/smoke_mesh/``);
+24. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
     K1/K2) its time at its path's shape, its launches on that path, the
     steps, launches per step, its bound on this card, the plain version's
     time, and its error against the plain version at that shape; K2 also
     at the multi-object paths' shapes (G = 16 at 64x64, G = 8 at 480x640),
     K4/K5 at the runner's and at the convex-diffeomorphism runner's (G =
     8, per-image points), at the image-mode runner's (width 64, G = 8,
-    per-image points), and K1 at the FBMS pretrain's (480x640, G = 1),
-    each printed as a ``kernel_vs_plain`` line too;
-24. the card's name and power limit, and last the result line
+    per-image points), K1 at the FBMS pretrain's (480x640, G = 1), and K2,
+    K4 and K5 at a mesh rank's shapes (``"path": "mesh"``), each printed
+    as a ``kernel_vs_plain`` line too;
+25. the card's name and power limit, and last the result line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Phases 5-8 also profile a 20-step window of their fit with
@@ -2847,6 +2864,454 @@ def data_utils_path(device, root: str) -> dict:
             "seconds": time.perf_counter() - t_all}
 
 
+MESH_SHAPE = (480, 640)
+MESH_SHIFTS = ((0.0, 0.0), (0.1, -0.05), (-0.08, 0.06), (0.05, 0.1))
+MESH_STEPS = 200
+# the fused fit is chaotic in the order of its sums: reordering the points
+# of a single-process fit moves its losses by ~1e-6 relative over the
+# first 100 steps and by ~1e-3 by step 200 (``tools/mesh_drift.py``); the
+# sharded fit is held step for step at the kernel's tolerance over these
+# first steps, and every step at fixed params
+MESH_EXACT_STEPS = 30
+MESH_RUNNER_EPOCHS = 40
+MESH_RUNNER_PRETRAIN = 100
+MESH_RANKS = 2
+MESH_RUNNER_RTOL, MESH_RUNNER_ATOL = 2e-3, 2e-4
+
+
+def _mesh_fit_inputs(device, shape):
+    import torch
+
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.core import tree as T
+
+    h, w = shape
+    model = bench_model(shape, device)
+    pts = G.flatten_grid(G.pixel_grid(shape, device=device))
+    targets = torch.stack([ellipse_target(h, w, device, shift=sh)
+                           for sh in MESH_SHIFTS])
+    stacked = T.stack_trees([model.init(torch.Generator().manual_seed(30 + i))
+                             for i in range(len(MESH_SHIFTS))])
+    return model, pts, targets, stacked
+
+
+def _mesh_fit_cfg(steps: int):
+    from awesome_tpu_torch.fit.prior_fit import FitConfig
+
+    return FitConfig(num_steps=steps, lr=1e-3, fused=True,
+                     gate_threshold=0.5, nan_guard_grads=False)
+
+
+def mesh_fit(device, mesh=None, shape=MESH_SHAPE, steps=MESH_STEPS
+             ) -> dict:
+    """The batched fused fit of the mesh phase: the bench model on
+    ``len(MESH_SHIFTS)`` ellipses at ``shape`` with the 0.5 IoU gate and
+    one retry, ``steps`` steps; on ``mesh`` when given (the images over
+    'data', the points over 'grid'). Returns host arrays, this process's
+    K2 launches in the fit and the synchronised seconds."""
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.prior_fit import fit_priors_batched
+
+    model, pts, targets, stacked = _mesh_fit_inputs(device, shape)
+    cfg = _mesh_fit_cfg(steps)
+    keys = [40 + i for i in range(len(MESH_SHIFTS))]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    fitted, aux = fit_priors_batched(model, stacked, pts, targets, cfg,
+                                     retry_keys=keys, mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"params": [x.cpu().numpy() for x in T.tree_leaves(fitted)],
+            "loss_hist": aux["loss_hist"].cpu().numpy(),
+            "gate_iou": aux["gate_iou"].cpu().numpy(),
+            "k2": counts()[0], "seconds": seconds, "steps": steps}
+
+
+def mesh_steps(device, mesh, at, shape=MESH_SHAPE) -> dict:
+    """One K2 loss+grad step of the mesh fit at the inits and at ``at``
+    (host leaves of fitted params). On ``mesh`` each rank launches K2 on
+    its block of the images and of their points, with the weights and the
+    sums over the grid axis; the images' rows are gathered over 'data'."""
+    import torch
+
+    from awesome_tpu_torch.core import tree as T
+    from awesome_tpu_torch.fit.fused_fit import _FlatFit
+    from awesome_tpu_torch.fit.prior_fit import _stacked_weights
+
+    model, pts, targets, stacked = _mesh_fit_inputs(device, shape)
+    cfg = _mesh_fit_cfg(1)
+    out = {}
+    b, n = targets.shape[:2]
+    ds, gs = slice(0, b), slice(0, n)
+    grid_sum = None
+    if mesh is not None:
+        ds, gs = mesh.local("data", b), mesh.local("grid", n)
+        grid_sum = mesh.reducer("grid", n)
+    eng = _FlatFit(model, cfg, None)
+    wts = _stacked_weights(targets[ds, gs], cfg, None, grid_sum)
+    it = iter(at)
+    trees = {"init": stacked, "fitted": T.tree_map(
+        lambda x: torch.as_tensor(next(it), device=x.device), stacked)}
+    for name, tree in trees.items():
+        loss, grads = eng.fused.flat(
+            eng.pack(T.tree_map(lambda x: x[ds], tree)), pts[gs].contiguous(),
+            targets[ds, gs, 0].contiguous(), wts[..., 0].contiguous())
+        if grid_sum is not None:
+            loss, grads = grid_sum(loss), grid_sum(grads)
+        if mesh is not None and mesh.splits("data", b):
+            loss, grads = mesh.gather("data", loss), mesh.gather("data", grads)
+        out[f"step_{name}"] = (loss.cpu().numpy(), grads.cpu().numpy())
+    return out
+
+
+def mesh_runner(device, folder: str, mesh_shape=None,
+                epochs: int = MESH_RUNNER_EPOCHS,
+                pretrain: int = MESH_RUNNER_PRETRAIN) -> dict:
+    """The convexity runner (``runner_config``'s widths) for ``epochs``
+    epochs after a ``pretrain``-step pretrain, on ``mesh_shape`` when
+    given: the per-image loss history and this process's K4 and K5
+    launches in the training alone."""
+    import shutil
+
+    import torch
+
+    from awesome_tpu_torch.runner.runner import AwesomeRunner
+
+    shutil.rmtree(folder, ignore_errors=True)
+    runner = AwesomeRunner(runner_config(
+        folder, device, num_epochs=epochs, mesh_shape=mesh_shape,
+        pretrain_args={"num_epochs": pretrain,
+                       "proper_prior_fit_retrys": 1}))
+    runner.build()
+    runner.pretrain()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = runner.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _, _, k4, k5, _ = counts()
+    return {"loss_hist": res["loss_hist"], "k4": k4, "k5": k5,
+            "evals": _evals(runner), "seconds": seconds,
+            "padded_points": int(runner._dev_batch["px"].shape[1]),
+            "mesh": None if runner.mesh is None else dict(runner.mesh.shape)}
+
+
+def allreduce_ms(mesh, rows: int, cols: int, reps: int = 50) -> float:
+    """ms of one grid-axis ``all_reduce`` of a (rows, cols) float32 row
+    block (K2's loss and grads), synchronised on both ends."""
+    import torch
+
+    buf = torch.ones((rows, cols), device=mesh.device)
+    mesh.sum_over("grid", buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mesh.sum_over("grid", buf)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _where(mesh) -> dict:
+    """The mesh's backend and this rank's device, as the mesh holds them."""
+    return {"backend": mesh.backend, "device": str(mesh.device)}
+
+
+def _check_where(where: list, what: str) -> list:
+    """Every rank on gloo and on a card (two ranks share the one card)."""
+    if any(w["backend"] != "gloo" or not w["device"].startswith("cuda")
+           for w in where):
+        raise AssertionError(f"{what}: ranks on {where}, not gloo on the "
+                             "card")
+    return where
+
+
+def mesh_rank(root: str, go: str) -> dict:
+    """A rank of the mesh phase: once the file ``go`` exists (the single
+    process's references are done; it holds their fitted params), the
+    fused fit on (2, 1) and (1, 2) with the step at those params, then
+    the runner on [2, 1] and [1, 2]. Rank 0 sends the params and
+    histories; every rank its launches and seconds."""
+    import torch.distributed as dist
+
+    from awesome_tpu_torch.ops.flagship import FlagshipSpec
+    from awesome_tpu_torch.parallel import make_mesh
+
+    root_rank = dist.get_rank() == 0
+    # the card is the single process's until then
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    with np.load(go) as f:
+        at = [f[f"a{i}"] for i in range(len(f.files))]
+    out = {}
+    for shape in ((MESH_RANKS, 1), (1, MESH_RANKS)):
+        mesh = make_mesh(shape)
+        res = mesh_fit("cuda", mesh)
+        res.update(mesh_steps("cuda", mesh, at))
+        res["where"] = _where(mesh)
+        if shape[1] > 1:
+            spec = FlagshipSpec.of(bench_model(MESH_SHAPE, "cuda"))
+            res["allreduce_ms"] = allreduce_ms(
+                mesh, len(MESH_SHIFTS), spec.offsets()[1] + 1)
+        if not root_rank:
+            res = {k: v for k, v in res.items()
+                   if k in ("k2", "seconds", "allreduce_ms", "where")}
+        out[f"fit_{shape[0]}x{shape[1]}"] = res
+    for shape in ([MESH_RANKS, 1], [1, MESH_RANKS]):
+        res = mesh_runner("cuda", os.path.join(root, f"runner_{shape[0]}x"
+                                                     f"{shape[1]}"), shape)
+        out[f"runner_{shape[0]}x{shape[1]}"] = res
+    return out
+
+
+def _write_sharded_configs(folder: str, device) -> str:
+    """Three tiny convexity configs for ``run_sharded``."""
+    from awesome_tpu_torch.runner.config import AwesomeConfig
+    from awesome_tpu_torch.serialization.jsonconv import save_yaml
+
+    cfg_dir = os.path.join(folder, "cfgs")
+    os.makedirs(cfg_dir, exist_ok=True)
+    for i in range(3):
+        save_yaml(AwesomeConfig(
+            name_experiment=f"smoke_shard_{i}",
+            dataset_args={"n": 2, "h": 32, "w": 32},
+            segmentation_model_args={"n_hidden": 12},
+            prior_model_args={"n_hidden": 8, "n_hidden_layers": 1},
+            optimizer_args={"lr": 0.02}, num_epochs=10,
+            do_pretraining=False,
+            compute_metrics_during_training_nth_epoch=None,
+            validation_each_nth_epoch=0, seed=i, device=device),
+            os.path.join(cfg_dir, f"c{i}.yaml"))
+    return cfg_dir
+
+
+def _background(fn, *args):
+    """``fn(*args)`` in a thread of this process (its work is in child
+    processes); the thread's ``result``, ``error`` (what ``fn`` raised,
+    a ``SystemExit`` included) and ``seconds`` are read after
+    :func:`_joined`."""
+    import threading
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            thread.result = fn(*args)
+        except (Exception, SystemExit) as err:  # reported by _joined
+            thread.error = err
+        thread.seconds = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.result = thread.error = thread.seconds = None
+    thread.start()
+    return thread
+
+
+def _joined(thread, what: str, timeout: float = 300.0):
+    thread.join(timeout=timeout)
+    if thread.is_alive() or thread.error is not None:
+        raise AssertionError(f"{what}: {thread.error!r}")
+    return thread
+
+
+def _check_sharded_runs(runs: str) -> dict:
+    m = [json.load(open(os.path.join(runs, f"shard_{i}.json")))
+         for i in range(2)]
+    jobs = [set(x["jobs"]) for x in m]
+    if any(x["failures"] for x in m) or [len(j) for j in jobs] != [2, 1] \
+            or jobs[0] & jobs[1] or any(
+                not x["device"].startswith("cuda") for x in m):
+        raise AssertionError(f"run_sharded shards: {m}")
+    table = open(os.path.join(runs, "comparison.md")).read()
+    if not all(f"smoke_shard_{i}" in table for i in range(3)):
+        raise AssertionError("run_sharded: comparison.md lacks a run")
+    return {"shards": [sorted(os.path.basename(p) for p in j)
+                       for j in jobs], "devices": [x["device"] for x in m],
+            "comparison_bytes": len(table)}
+
+
+def mesh_path(device, root: str) -> dict:
+    """The device mesh on the one card (``parallel/mesh.py``): two ranks
+    on ``cuda:0`` over gloo (they share the card). (a) The batched fused
+    fit (bench model, 4 images at 480x640, the gate, ``MESH_STEPS``
+    steps) on (2, 1) and (1, 2) against the single-process fit: on each,
+    a step at the inits and at the fitted params (each rank's K2 on its
+    block of the images and points) within ``LOSS_RTOL`` in the loss and
+    5e-4 in the grads, the first ``MESH_EXACT_STEPS`` losses within
+    ``LOSS_RTOL``, the final ones within 1e-2, the same gate outcomes;
+    (2, 1) bitwise where K2's launch tiles an image as at G = 4; K2
+    launches per rank = the steps (plus the retry's), the grid
+    ``all_reduce``'s share of a step; every rank on gloo and a card. (b) The convexity runner on
+    [2, 1] and [1, 2], ``MESH_RUNNER_EPOCHS`` epochs: loss histories
+    within rtol 2e-3, atol 2e-4 of the single-process run, one K4 and one
+    K5 launch per rank per epoch. (c) ``run_sharded --spawn`` with two
+    workers on the card and 3 tiny configs: disjoint shards, one
+    ``comparison.md``. (d) ``dryrun_multichip(2)``. (c) and (d) run beside
+    the ranks. Gloo's collectives on one card are not NCCL's across
+    cards."""
+    import shutil
+
+    import torch
+
+    from awesome_tpu_torch.parallel.launch import start
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_all = time.perf_counter()
+    # the ranks start up (~8 s each) while this process takes the
+    # single-process references; they wait for `go` to touch the card
+    go = os.path.join(root, "go.npz")
+    pending = start(mesh_rank, MESH_RANKS, (root, go), device="cuda")
+    try:
+        single = mesh_fit(device)
+        at = single["params"]
+        single.update(mesh_steps(device, None, at))
+        single_runner = mesh_runner(device,
+                                    os.path.join(root, "runner_single"))
+        torch.cuda.synchronize()
+        np.savez(go + ".tmp.npz", **{f"a{i}": a for i, a in enumerate(at)})
+        os.rename(go + ".tmp.npz", go)
+    except BaseException:
+        pending.stop()
+        raise
+    # (c) and (d) beside the ranks: the sweep's two workers and the dry
+    # run's two ranks start up (~8 s each) and run their tiny configs
+    # while the ranks fit (so the ranks' ms/step include their load)
+    from awesome_tpu_torch.parallel.dryrun import dryrun_multichip
+    from awesome_tpu_torch.scripts import run_sharded
+
+    folder = os.path.join(root, "sharded")
+    runs = os.path.join(folder, "runs")
+    sweep = _background(run_sharded.main, [
+        "--config-dir", _write_sharded_configs(folder, device),
+        "--num-shards", "2", "--spawn", "--device", "cuda",
+        "--runs-path", runs])
+    dry = _background(dryrun_multichip, MESH_RANKS)
+    try:
+        return _mesh_checks(device, pending.join(), single, single_runner,
+                            sweep, dry, runs, t_all)
+    finally:
+        # their child processes end before this returns
+        sweep.join(timeout=300)
+        dry.join(timeout=300)
+
+
+def _mesh_checks(device, ranks, single, single_runner, sweep, dry, runs,
+                 t_all) -> dict:
+    """The mesh phase's checks and record (see :func:`mesh_path`)."""
+    import torch
+
+    from awesome_tpu_torch.ops.flagship import FlagshipSpec, launch_shape
+
+    out = {"phase": "mesh", "ranks": MESH_RANKS,
+           "collectives": "gloo between two processes on one card, not "
+                          "NCCL across cards",
+           "fit": {"shape": list(MESH_SHAPE), "images": len(MESH_SHIFTS),
+                   "steps": MESH_STEPS, "single_s": single["seconds"],
+                   "single_ms_per_step": 1e3 * single["seconds"]
+                   / single["k2"], "single_k2": single["k2"],
+                   "gate_iou": [float(v) for v in single["gate_iou"]]}}
+    spec = FlagshipSpec.of(bench_model(MESH_SHAPE, device))
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    b = len(MESH_SHIFTS)
+    # the gate's retry refits (the failed images only) for the full steps
+    launched = single["k2"]
+    if launched != 2 * MESH_STEPS:
+        raise AssertionError(f"single fit: {launched} K2 launches for "
+                             f"{MESH_STEPS} steps and the retry's")
+    for d, g in ((MESH_RANKS, 1), (1, MESH_RANKS)):
+        key = f"fit_{d}x{g}"
+        res = ranks[0][key]
+        k2 = [r[key]["k2"] for r in ranks]
+        if any(x != launched for x in k2):
+            raise AssertionError(f"{key}: K2 launches per rank {k2}, the "
+                                 f"single fit's {launched}")
+        diff = max(float(np.abs(a - r).max())
+                   for a, r in zip(res["params"], single["params"]))
+        entry = {"where": _check_where([r[key]["where"] for r in ranks],
+                                       key),
+                 "k2_per_rank": k2, "local_images": b // d,
+                 "local_points": n // g,
+                 "seconds": max(r[key]["seconds"] for r in ranks),
+                 "max_param_diff": diff,
+                 "max_loss_rel_diff": float(np.max(
+                     np.abs(res["loss_hist"] - single["loss_hist"])
+                     / np.abs(single["loss_hist"]))),
+                 "gate_iou": [float(v) for v in res["gate_iou"]]}
+        entry["ms_per_step"] = 1e3 * entry["seconds"] / launched
+        if g == 1:
+            same = launch_shape(spec, n, b // d, None, torch.device(
+                device)) == launch_shape(spec, n, b, None,
+                                         torch.device(device))
+            entry["bitwise_expected"] = bool(same)
+            entry["bitwise"] = diff == 0.0
+            if same and diff != 0.0:
+                raise AssertionError(f"{key}: K2 tiles an image as at G="
+                                     f"{b}, yet params differ by {diff}")
+        # step for step at fixed params (each rank's K2 on its block of
+        # the images and points), the kernel's tolerances
+        for at_name in ("init", "fitted"):
+            (l1, g1), (lm, gm) = (single[f"step_{at_name}"],
+                                  res[f"step_{at_name}"])
+            np.testing.assert_allclose(lm, l1, rtol=LOSS_RTOL)
+            np.testing.assert_allclose(gm, g1, rtol=5e-4,
+                                       atol=1e-6 * np.abs(g1).max())
+            entry[f"step_{at_name}_loss_rel_diff"] = float(np.max(
+                np.abs(lm - l1) / np.abs(l1)))
+        # the trajectory, before the sums' order has been amplified
+        np.testing.assert_allclose(
+            res["loss_hist"][:, :MESH_EXACT_STEPS],
+            single["loss_hist"][:, :MESH_EXACT_STEPS], rtol=LOSS_RTOL)
+        final = res["loss_hist"][:, -1], single["loss_hist"][:, -1]
+        np.testing.assert_allclose(final[0], final[1], rtol=1e-2)
+        if not np.array_equal(res["gate_iou"] >= 0.5,
+                              single["gate_iou"] >= 0.5):
+            raise AssertionError(f"{key}: gate {res['gate_iou']} "
+                                 f"against {single['gate_iou']}")
+        entry["exact_steps"] = MESH_EXACT_STEPS
+        if g > 1:
+            entry["allreduce_ms"] = [r[key]["allreduce_ms"] for r in ranks]
+            entry["allreduce_share"] = (
+                max(entry["allreduce_ms"]) / entry["ms_per_step"])
+        out["fit"][key] = entry
+    out["runner"] = {"epochs": MESH_RUNNER_EPOCHS,
+                     "pretrain_steps": MESH_RUNNER_PRETRAIN,
+                     "single_s": single_runner["seconds"],
+                     "padded_points": single_runner["padded_points"]}
+    for shape in ((MESH_RANKS, 1), (1, MESH_RANKS)):
+        key = f"runner_{shape[0]}x{shape[1]}"
+        res = ranks[0][key]
+        if res["mesh"] != {"data": shape[0], "grid": shape[1]}:
+            raise AssertionError(f"{key}: the runner's mesh {res['mesh']}")
+        np.testing.assert_allclose(res["loss_hist"],
+                                   single_runner["loss_hist"],
+                                   rtol=MESH_RUNNER_RTOL,
+                                   atol=MESH_RUNNER_ATOL)
+        k45 = [(r[key]["k4"], r[key]["k5"]) for r in ranks]
+        for k4, k5 in k45:
+            if k5 != MESH_RUNNER_EPOCHS or k4 != MESH_RUNNER_EPOCHS + \
+                    res["evals"]:
+                raise AssertionError(f"{key}: K4/K5 launches per rank "
+                                     f"{k45} in {MESH_RUNNER_EPOCHS} "
+                                     f"epochs, {res['evals']} evaluations")
+        out["runner"][key] = {
+            "k4_k5_per_rank": k45, "evals": res["evals"],
+            "seconds": max(r[key]["seconds"] for r in ranks),
+            "max_loss_diff": float(np.abs(
+                res["loss_hist"] - single_runner["loss_hist"]).max())}
+
+    dry = _joined(dry, "dryrun_multichip")
+    _check_where(dry.result["ranks"], "dryrun_multichip")
+    out["dryrun_multichip"] = dict(dry.result, seconds=dry.seconds)
+    sweep = _joined(sweep, "run_sharded --spawn")
+    out["run_sharded"] = dict(_check_sharded_runs(runs),
+                              seconds=sweep.seconds)
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def icnn_inputs(width, layers, c, n, g, per_image, seed, device):
     """An ICNN, its stacked params (G images), their (G, P) rows, points
     (N, C) or (G, N, C), and an upstream grad (G, N)."""
@@ -3310,6 +3775,43 @@ def icnn_entries(launches4, launches5, steps, reps, device, n=480 * 640,
     return out
 
 
+def mesh_kernel_entries(mesh: dict, device) -> list:
+    """K2 at each mesh fit's per-rank shape and K4/K5 at each mesh
+    runner's, their launches those of rank 0 in the mesh phase, each held
+    against its plain version there (``"path": "mesh"``)."""
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    b = len(MESH_SHIFTS)
+    model = bench_model(MESH_SHAPE, device)
+    out = []
+    for d, g in ((MESH_RANKS, 1), (1, MESH_RANKS)):
+        fit = mesh["fit"][f"fit_{d}x{g}"]
+        entry = kernel_entry(
+            f"flagship_loss_grad (K2, G={b // d} x {n // g} points per "
+            f"rank, mesh ({d}, {g}))", "awesome_tpu/ops/pallas_flagship.py"
+            ":236", model, n // g, b // d, 25 + d, fit["k2_per_rank"][0],
+            mesh["fit"]["single_k2"], 10, device)
+        out.append(dict(entry, path="mesh"))
+    pts = mesh["runner"]["padded_points"]
+    images = len(RUNNER_SHAPES)
+    for d, g in ((MESH_RANKS, 1), (1, MESH_RANKS)):
+        run = mesh["runner"][f"runner_{d}x{g}"]
+        k4, k5 = run["k4_k5_per_rank"][0]
+        local_n = pts // g if pts % g == 0 else pts
+        out += [dict(e, path="mesh") for e in icnn_entries(
+            k4, k5, MESH_RUNNER_EPOCHS, 50, device, n=local_n,
+            g=images // d, per_image=True,
+            tag=f", G={images // d} x {local_n} points per rank, runner "
+            f"mesh ({d}, {g})", seed=27 + d)]
+    for entry in out:
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel":
+                          entry["name"], "path": "mesh",
+                          "n": entry["shape"]["n"],
+                          "g": entry["shape"]["g"],
+                          "max_abs_err": entry["max_abs_err"],
+                          "bitwise_repeat": True}), flush=True)
+    return out
+
+
 def build_all() -> None:
     """Build both kernel libraries side by side (one nvcc each) and print
     each build's time and ptxas register and spill lines."""
@@ -3416,6 +3918,8 @@ def main() -> int:
         os.path.join("build", "smoke_paper_table"))), flush=True)
     data = data_utils_path(dev, os.path.join("build", "smoke_data"))
     print(json.dumps(data), flush=True)
+    mesh = mesh_path(dev, os.path.join("build", "smoke_mesh"))
+    print(json.dumps(mesh), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
@@ -3496,6 +4000,7 @@ def main() -> int:
                       "max_abs_err": entry["max_abs_err"],
                       "bitwise_repeat": True}), flush=True)
     kernels.append(entry)
+    kernels += mesh_kernel_entries(mesh, dev)
     print(json.dumps({
         "phase": "fit_prior_fused_vs_main_path",
         "fit_prior_fused_ms_per_step": data["fit_prior_fused"]["ms_per_step"],

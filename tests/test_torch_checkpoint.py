@@ -310,3 +310,72 @@ def test_zoo_round_trip_and_cached_prefit(tmp_path):
                           flow_identity_steps=1, zoo=zoo, zoo_key="other")
     assert not torch.equal(other["flow"]["steps"][0]["s"]["l1"]["w"],
                            first["flow"]["steps"][0]["s"]["l1"]["w"])
+
+
+def _sample_config(samples):
+    from awesome_tpu_torch.runner.config import AwesomeConfig
+
+    cfg = AwesomeConfig(name_experiment="snap", device=CPU,
+                        dataset_args={"seed": 0, "augmentation": True,
+                                      **({} if samples is None
+                                         else {"samples": samples})})
+    cfg.prepare()
+    return cfg
+
+
+def test_checkpoint_samples_round_trip_bitwise(tmp_path):
+    """A config with in-memory samples: their arrays go once into the
+    checkpoint's ``samples.npz``, ``meta.json`` holds no array, and the
+    loaded snapshot rebuilds every sample bit for bit."""
+    from awesome_tpu_torch.data.synthetic import make_sample
+    from awesome_tpu_torch.serialization.jsonconv import (
+        from_jsonable,
+        to_jsonable,
+    )
+
+    samples = [make_sample(i, h=48, w=64) for i in range(3)]
+    cfg = _sample_config(samples)
+    snap, arrays = TC.config_snapshot(cfg)
+    d = str(tmp_path / "ck")
+    with TC.atomic_dir(d) as tmp:
+        TC.AgentCheckpoint("snap", {"w": torch.ones(2)}, config=snap,
+                           arrays=arrays).save(tmp)
+    assert sorted(os.listdir(d)) == ["meta.json", "params.npz",
+                                     "params.tree.json", TC.SAMPLES_FILE]
+    meta_text = open(os.path.join(d, "meta.json")).read()
+    ref = to_jsonable(samples)
+    assert len(meta_text) < len(json.dumps(ref)) / 20
+    ref_meta = json.loads(meta_text)["config"]["dataset_args"]["samples"]
+    assert ref_meta["__npz__"] == TC.SAMPLES_FILE
+    assert "\"data\":" not in json.dumps(ref_meta)  # no inline array
+    loaded = TC.AgentCheckpoint.load(d, device=CPU)
+    back = from_jsonable(loaded.config["dataset_args"]["samples"])
+    for a, b in zip(samples, back):
+        assert type(a) is type(b)
+        for k, v in vars(a).items():
+            got = getattr(b, k)
+            if isinstance(v, np.ndarray):
+                assert got.dtype == v.dtype
+                np.testing.assert_array_equal(got, v)
+            else:
+                assert got == v
+    assert to_jsonable(back) == ref
+    rest = {k: v for k, v in loaded.config["dataset_args"].items()
+            if k != "samples"}
+    assert rest == {"seed": 0, "augmentation": True}
+
+
+def test_checkpoint_without_samples_writes_the_same_files(tmp_path):
+    """Without in-memory samples the snapshot is ``to_jsonable(config)``
+    and the checkpoint holds the files it always held."""
+    from awesome_tpu_torch.serialization.jsonconv import to_jsonable
+
+    cfg = _sample_config(None)
+    snap, arrays = TC.config_snapshot(cfg)
+    assert arrays == {} and snap == to_jsonable(cfg)
+    d = TC.AgentCheckpoint("snap", {"w": torch.ones(2)}, config=snap,
+                           arrays=arrays).save(str(tmp_path / "ck"))
+    assert sorted(os.listdir(d)) == ["meta.json", "params.npz",
+                                     "params.tree.json"]
+    assert TC.AgentCheckpoint.load(d, device=CPU).config == json.loads(
+        json.dumps(snap))

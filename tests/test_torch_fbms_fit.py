@@ -277,14 +277,15 @@ def test_skip_pretrain_on_resume_matches_jax(tmp_path):
 
 
 def test_options_left_out_raise(seq):
-    """A device mesh raises, naming its ROADMAP item, before anything
-    trains."""
+    """A mesh larger than the world (two positions in one process, no
+    process group) raises ``ValueError`` before anything trains, as JAX's
+    ``make_mesh`` does for devices."""
     tr = TR.FBMSRunner(TR.FBMSExperimentConfig(dataset_path=seq,
                                                mesh_shape=[2, 1], **SMALL),
                        device="cpu").build()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         tr.pretrain()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         tr.train_joint(num_epochs=1)
 
 

@@ -266,13 +266,15 @@ def _cli_args(folder):
 
 
 @pytest.mark.parametrize("option, error, match", [
-    (dict(mesh_shape=[2, 1]), NotImplementedError, "item 8"),
+    (dict(mesh_shape=[2, 1]), ValueError, "needs 2 processes"),
     (dict(segmentation_model_type="awesome_tpu.nn.seg.CNNNet"), ValueError,
      "convolutional"),
 ])
 def test_options_left_out_raise(tmp_path, option, error, match):
-    """A device mesh is not ported yet; CNNNet in pixel mode raises as in
-    the JAX runner (a conv net needs image mode)."""
+    """A mesh larger than the world (two positions in one process, no
+    process group) raises, as JAX's ``make_mesh`` does for devices;
+    CNNNet in pixel mode raises as in the JAX runner (a conv net needs
+    image mode)."""
     with pytest.raises(error, match=match):
         AwesomeRunner(_port_config(tmp_path, **option)).build()
 
