@@ -405,12 +405,31 @@ class LaunchShape:
     n_tiles: int
 
 
+def split_chunks(n_chunks: int, group: int, sms: int, per_sm: int,
+                 tile_chunks: Optional[int] = None) -> Tuple[int, int]:
+    """(chunks per block, blocks per image) for ``n_chunks`` chunks of each
+    of ``group`` images on a card of ``sms`` SMs holding ``per_sm`` blocks
+    each. ``tile_chunks`` fixes the chunks per block. By default the tiles
+    per image come first: as many as keep all ``group`` images' blocks in
+    one wave (``group * n_tiles <= sms * per_sm`` whenever ``group`` allows
+    it, at least one tile per image), then the chunks are spread evenly
+    over them. Cutting the total work into a wave's worth of chunks instead
+    leaves a ragged last tile per image whose blocks start a second wave
+    (at 8 images of 4,800 chunks on 132 SMs: 136 blocks)."""
+    if tile_chunks is not None:
+        chunks = max(1, tile_chunks)
+    else:
+        tiles = max(1, min(n_chunks, (sms * per_sm) // group))
+        chunks = -(-n_chunks // tiles)
+    return chunks, -(-n_chunks // chunks)
+
+
 def launch_shape(spec: FlagshipSpec, n: int, group: int,
                  tile_n: Optional[int], device: torch.device,
                  use_bf16: bool = False) -> LaunchShape:
     """Pick the launch shape of the FP32 or the bf16 build. ``tile_n`` is a
     hint for the points per block; by default the blocks of all images fill
-    one wave of the card.
+    one wave of the card (:func:`split_chunks`).
     The result depends only on the shapes and the card, so two calls on the
     same inputs reduce in the same order (bitwise equal results)."""
     lib = LIBRARY.get()
@@ -428,14 +447,13 @@ def launch_shape(spec: FlagshipSpec, n: int, group: int,
         raise ValueError(f"model too wide for the kernel: needs {smem} B of "
                          f"shared memory, the card allows {max_smem.value}")
     n_chunks = -(-n // tp)
-    if tile_n is not None:
-        chunks = max(1, -(-tile_n // tp))
-    else:
-        per_sm = lib.flagship_blocks_per_sm(dev, tp, int(use_bf16), smem)
-        if per_sm < 1:
-            raise RuntimeError(f"occupancy query failed ({per_sm})")
-        chunks = max(1, -(-n_chunks * group // (sms.value * per_sm)))
-    return LaunchShape(tp, smem, chunks, -(-n_chunks // chunks))
+    per_sm = lib.flagship_blocks_per_sm(dev, tp, int(use_bf16), smem)
+    if per_sm < 1:
+        raise RuntimeError(f"occupancy query failed ({per_sm})")
+    chunks, n_tiles = split_chunks(
+        n_chunks, group, sms.value, per_sm,
+        None if tile_n is None else -(-tile_n // tp))
+    return LaunchShape(tp, smem, chunks, n_tiles)
 
 
 def flagship_loss_grad_cuda(spec: FlagshipSpec, flat: torch.Tensor,
