@@ -36,26 +36,46 @@
 // but doubles the second. (`wgmma` wants 64-row tiles in a shared layout
 // of its own, for which the rows below leave no room.) The flow is ~12% of
 // the MACs but a long chain of small steps, each a few FMAs per point
-// followed by a reduction over points. The bf16 build's products run on
-// the bf16 tensor cores (below); what bounds them there is no longer the
-// arithmetic but moving their operands: the weights streamed from L2 per
-// chunk and slab, the FP32 activation rows read and packed per fragment,
-// and the weight grads' read-modify-write of the partial row per chunk.
+// followed, in the backward, by a reduction over points; what bounds it is
+// issue and shared-memory traffic per point and the barriers between steps
+// (one block of 8 warps per SM: a barrier drains the SM). The bf16 build's
+// products run on the bf16 tensor cores (below); what bounds them there is
+// no longer the arithmetic but moving their operands: the weights streamed
+// from L2 per chunk and slab, the FP32 activation rows read and packed per
+// fragment, and the weight grads' read-modify-write of the partial row per
+// chunk.
 //
 // Design.
 // - A block takes one image g and a tile of `chunks` chunks of TP points
 //   (TP = 64, or 32 for wide models). Per chunk it keeps every activation
-//   in shared memory, rows of TP+4 floats (16-byte aligned rows): the
-//   coupling inputs z, the pre-ActNorm z and the post-tanh s|t of every
-//   flow (8F rows), the ICNN's post-relu activations ((L+1)*W rows) and two
-//   W-row gradient buffers. The flow's hidden layer h (2H rows) is NOT
-//   saved per flow: the backward recomputes it from the saved coupling
-//   input (as `_kernel_interleaved` does), in the rows the ICNN uses, which
-//   are free by then. Bench model at TP=64: (24 + 8*12 + 5*130) rows * 68
-//   * 4 B + 2 weight slabs of 16 x 145 floats = 228,000 B of the 227 KB
-//   (232,448 B) a block may use (the bf16 build's slabs are 144 rows of
-//   16 bf16 at a 48 B stride: 223,264 B); one block per SM. The slab space
-//   holds one flow step's weights while the flow runs.
+//   in shared memory, rows of TP+4 floats (16-byte aligned rows): per flow
+//   step the coupling input z0, z1 and the post-tanh s, t of the channel it
+//   transforms (4F rows), the ICNN's post-relu activations ((L+1)*W rows)
+//   and two W-row gradient buffers. Bench model at TP=64: (12 + 4*12 +
+//   5*130) rows * 68 * 4 B + 2 weight slabs of 16 x 145 floats + the flow's
+//   resident weights (12,672 B) = 224,352 B of the 227 KB (232,448 B) a
+//   block may use (the bf16 build's slabs are 144 rows of 16 bf16 at a
+//   48 B stride: 219,616 B); one block per SM.
+// - The flow runs on lanes of one warp per point, not on rows, and keeps
+//   the point's z (forward) and dL/dz (backward) in registers through all
+//   F steps (`FlowLayout`). Forward: two lanes a point, one for each of the
+//   two rows of s|t that reach the output (the transformed channel's s and
+//   t), each summing its row unit by unit in index order, as the plain
+//   version's product does (its rounding, and so its relu decisions
+//   downstream, are the plain version's); the lanes swap s and t by a
+//   shuffle: no barrier between steps. Backward: NL = NT/TP lanes a point
+//   (4 at TP=64) split the hidden units in groups of 4, recompute h from
+//   the saved coupling input (as `_kernel_interleaved` does), form dh and
+//   their share of dz, and sum the shares with shuffles in a fixed order;
+//   h and dh go, point-major, with the step's per-point scalars to a term
+//   buffer, and after one barrier a thread sums each unit's w2 grad and a
+//   thread its b1 and w1 grads (from one read of its dh column) over the
+//   chunk's points, six threads the an_s, an_t and b2 grads. Two term buffers
+//   alternate, so a step needs that one barrier. The weights the steps use
+//   are staged once per block and stay resident (the bench model: 12 x 264
+//   floats; a flow too wide for them at TP=64 takes 32-point tiles). The
+//   grads that are 0 by the coupling masks or the block mask of w2 are
+//   written as 0.
 // - The FP32 build's ICNN products are register-tiled FMA loops of the
 //   kernel's own. Forward and backward-data (W x W times W x TP): 16-column
 //   slabs of the weight matrix are staged through shared memory (the next
@@ -65,12 +85,11 @@
 //   each thread owns 5 x 17 outputs; the row strides make both operands'
 //   reads free of bank conflicts. The bf16 build's are `mma.sync` routines
 //   with the same staging and contracts (`mm_rows_bf16`, `wgrad_bf16`).
-// - Every other sum over points (biases, ActNorm, the flow's weights, the
-//   ICNN's skip and input weights, the loss) is a thread per output,
-//   summing the chunk's points in order.
+// - Every other sum over points (the ICNN's biases, skip and input
+//   weights, the loss, the translation) is a thread per output, summing
+//   the chunk's points in order.
 // - Partial rows and weight slabs go through L2 only (ld/st.cg), so L1
-//   keeps the ~22 KB of flow weights and small vectors the point loops
-//   read.
+//   keeps the small vectors the point loops read.
 // - Reduction without atomics. TPU grid steps run in order and add into
 //   one VMEM-resident output; CUDA blocks run in no order. So each block
 //   writes its own partial row of (P + 1) floats (grads, then loss) to a
@@ -194,23 +213,60 @@ struct MMB {
   static_assert(PT * WR * 32 == NT && RT >= 144, "tiling");
 };
 
-__host__ __device__ inline int smem_rows(int F, int H, int W, int L) {
-  int icnn = (L + 3) * W, flow = 4 * H;
-  return 24 + 8 * F + (icnn > flow ? icnn : flow);
+// Rows of TP+4 floats before the flow's saved values: points (2), targets,
+// point weights, the ICNN input (2), dL/dxd (2), dL/dz (2), dL/dy, the
+// per-point loss.
+constexpr int FIXED_ROWS = 12;
+
+// The region after U holds the ICNN's two weight slabs (FP32, or bf16 in
+// the bf16 build).
+__host__ __device__ inline int stage_floats(int tp, bool bf16) {
+  return bf16 ? 2 * (tp == 64 ? MMB<64>::SLAB : MMB<32>::SLAB)
+              : 2 * (tp == 64 ? MM<64>::SLAB : MM<32>::SLAB);
 }
 
-// The region after the rows holds the ICNN's two weight slabs (FP32, or
-// bf16 in the bf16 build), or one flow step's weights (w1, b1, w2, b2:
-// 14H + 4 floats).
-__host__ __device__ inline int stage_floats(int tp, bool bf16, int H) {
-  const int slab = bf16 ? 2 * (tp == 64 ? MMB<64>::SLAB : MMB<32>::SLAB)
-                        : 2 * (tp == 64 ? MM<64>::SLAB : MM<32>::SLAB);
-  return slab > 14 * H + 4 ? slab : 14 * H + 4;
+// Where the flow keeps its weights and terms (floats; computed on the host
+// and passed as a kernel parameter, so none of it takes a register). The
+// backward runs a point on NL = NT/TP lanes of one warp, each lane taking
+// every NL-th group of 4 hidden units; 2H is padded with zero units to hp,
+// a multiple of 4*NL, so every lane runs the same loop. Per step the
+// weights the step uses are staged (ss floats): w1's column of the kept
+// channel, b1, w2's s and t rows of the transformed channel (hp each), then
+// those two b2, exp(an_s) (2), an_t (2) and 2 of padding. All F steps
+// (`weights` floats) stay resident after the slabs, staged once per block.
+// The union region U (u floats, the ICNN's rows) holds, while the flow
+// backward runs, nbuf buffers of its per-point terms: h (rounded in the
+// bf16 build) and dh point by point (TP rows of rs floats, rs = 16 mod 32
+// so that a quarter warp's 16-byte stores of two points fall in distinct
+// banks) and SC_ROWS rows of TP+4 per-point scalars. Two buffers (one
+// barrier per backward step) where they fit in the room the ICNN's rows
+// take anyway, else one (two barriers a step).
+constexpr int SC_ROWS = 10;
+
+struct FlowLayout {
+  int hp, rs, ss, weights, buf, nbuf, u;
+};
+
+__host__ __device__ inline FlowLayout flow_layout(int tp, int F, int H,
+                                                  int W, int L) {
+  FlowLayout f;
+  const int group = 4 * (NT / tp);
+  f.hp = (2 * H + group - 1) / group * group;
+  f.rs = f.hp % 32 == 16 ? f.hp : f.hp + 16;  // hp is a multiple of 16
+  f.ss = 4 * f.hp + 8;
+  f.weights = F * f.ss;
+  f.buf = 2 * tp * f.rs + SC_ROWS * (tp + 4);
+  const int icnn = (L + 3) * W * (tp + 4);
+  f.u = icnn > f.buf ? icnn : f.buf;
+  f.nbuf = 2 * f.buf <= f.u ? 2 : 1;
+  return f;
 }
 
 __host__ __device__ inline int smem_floats(int tp, bool bf16, int F, int H,
                                            int W, int L) {
-  return smem_rows(F, H, W, L) * (tp + 4) + stage_floats(tp, bf16, H);
+  const FlowLayout f = flow_layout(tp, F, H, W, L);
+  return (FIXED_ROWS + 4 * F) * (tp + 4) + f.u + stage_floats(tp, bf16) +
+         f.weights;
 }
 
 // Add v into a partial-row element (write it on the block's first chunk).
@@ -647,32 +703,140 @@ __device__ void rowdots(int R, const float* S, const float* const* wv,
   }
 }
 
-// The flow's hidden layer h = relu(w1 @ zm + b1), one element (j, p), from
-// the staged w1 and b1. In the bf16 build w1 is staged rounded and the
-// caller passes zm rounded.
-__device__ __forceinline__ float flow_h(const float* w1, const float* b1,
-                                        int j, float zm0, float zm1) {
-  return fmaxf(fmaf(w1[2 * j + 1], zm1, w1[2 * j] * zm0) + b1[j], 0.f);
+// One hidden unit of a flow step, h = relu(w1 @ zm + b1), where zm is the
+// coupling input with the transformed channel zeroed: w1k is the unit's
+// weight on the kept channel and zm that channel's value (both rounded in
+// the bf16 build). The one nonzero product and the bias add round apart,
+// as the reference's K = 2 product then bias do. The forward and the
+// backward's recompute call it on the same values, so their relu masks
+// agree.
+__device__ __forceinline__ float flow_h(float w1k, float b1, float zm) {
+  return fmaxf(__fadd_rn(__fmul_rn(w1k, zm), b1), 0.f);
 }
 
-// Copy flow step i's w1, b1, w2, b2 into shared memory at `fw`. The staged
-// w1 and w2 feed products only, so the bf16 build stages them rounded; the
-// biases stay FP32.
-template <bool BF16>
-__device__ __forceinline__ void stage_flow(float* fw, const float* w1,
-                                           const float* b1, const float* w2,
-                                           const float* b2, int i, int H2) {
-  const float* src[4] = {w1 + i * H2 * 2, b1 + i * H2, w2 + i * 4 * H2,
-                         b2 + i * 4};
-  const int len[4] = {H2 * 2, H2, 4 * H2, 4};
-  int pos = 0;
+// Sum v over the NL lanes of a point, in a fixed butterfly order: every lane
+// gets the same bits.
+template <int NL>
+__device__ __forceinline__ float lane_sum(float v) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const bool product = k == 0 || k == 2;
-    for (int e = threadIdx.x; e < len[k]; e += NT)
-      fw[pos + e] = product ? op<BF16>(src[k][e]) : src[k][e];
-    pos += len[k];
+  for (int m = 1; m < NL; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Flow step weight e of the staged layout (FlowLayout), the padded units
+// 0. The staged w1 and w2 feed products only, so the bf16 build stages
+// them rounded; b1, b2 and an_t stay FP32, and an_s is staged as
+// exp(an_s).
+template <bool BF16>
+__device__ __forceinline__ float flow_weight(int e, const FlowLayout& fl,
+                                             int H2, const float* w1,
+                                             const float* b1, const float* w2,
+                                             const float* b2,
+                                             const float* an_s,
+                                             const float* an_t) {
+  const int i = e / fl.ss, o = e - i * fl.ss;
+  const int keep = i & 1, kk = keep ^ 1;
+  const int seg = (o >= fl.hp) + (o >= 2 * fl.hp) + (o >= 3 * fl.hp) +
+                  (o >= 4 * fl.hp);
+  const int j = o - seg * fl.hp;
+  if (seg < 4) {
+    if (j >= H2) return 0.f;
+    if (seg == 0) return op<BF16>(w1[(i * H2 + j) * 2 + keep]);
+    if (seg == 1) return b1[i * H2 + j];
+    return op<BF16>(w2[(4 * i + 2 * (seg - 2) + kk) * H2 + j]);
   }
+  return j < 2   ? b2[4 * i + 2 * j + kk]
+         : j < 4 ? expf(an_s[2 * i + j - 2])
+         : j < 6 ? an_t[2 * i + j - 4]
+                 : 0.f;
+}
+
+// Stage all F flow steps' weights into shared memory at `fw`: each thread
+// loads 8 before it stores any, so the loads' latencies overlap.
+template <bool BF16>
+__device__ void stage_flow(float* fw, const FlowLayout& fl, int F, int H2,
+                           const float* w1, const float* b1, const float* w2,
+                           const float* b2, const float* an_s,
+                           const float* an_t) {
+  constexpr int B = 8;
+  const int total = F * fl.ss;
+  for (int e0 = threadIdx.x; e0 < total; e0 += B * NT) {
+    float v[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int e = e0 + u * NT;
+      v[u] = e < total ? flow_weight<BF16>(e, fl, H2, w1, b1, w2, b2, an_s,
+                                           an_t)
+                       : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      if (e0 + u * NT < total) fw[e0 + u * NT] = v[u];
+  }
+}
+
+// The backward's sums over a chunk's points, each in four interleaved
+// partial sums added in a fixed order. a is a column of a term buffer
+// (stride rs); w and r are rows of per-point scalars (16-byte aligned).
+__device__ __forceinline__ float sum4(float s0, float s1, float s2,
+                                      float s3) {
+  return (s0 + s1) + (s2 + s3);
+}
+
+// sum_p a[p * stride] * w[p] (operands already rounded in the bf16 build)
+template <int TP>
+__device__ __forceinline__ float col_dot(const float* a, int stride,
+                                         const float* w) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 4
+  for (int p = 0; p < TP; p += 4) {
+    const float4 v = ld4(w + p);
+    s0 = fmaf(a[p * stride], v.x, s0);
+    s1 = fmaf(a[(p + 1) * stride], v.y, s1);
+    s2 = fmaf(a[(p + 2) * stride], v.z, s2);
+    s3 = fmaf(a[(p + 3) * stride], v.w, s3);
+  }
+  return sum4(s0, s1, s2, s3);
+}
+
+// sum_p r[p]
+template <int TP>
+__device__ __forceinline__ float row_sum(const float* r) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 4
+  for (int p = 0; p < TP; p += 4) {
+    const float4 v = ld4(r + p);
+    s0 += v.x;
+    s1 += v.y;
+    s2 += v.z;
+    s3 += v.w;
+  }
+  return sum4(s0, s1, s2, s3);
+}
+
+// The b1 and w1 grads of one hidden unit from its dh column: sum_p dh and
+// sum_p r(dh) * zm (zm already rounded; r rounds in the bf16 build).
+template <int TP, bool BF16>
+__device__ __forceinline__ float2 dh_sums(const float* dh, int stride,
+                                          const float* zm) {
+  float b[4] = {0.f, 0.f, 0.f, 0.f}, w[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int p = 0; p < TP; p += 4) {
+    const float4 z = ld4(zm + p);
+    const float zz[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float v = dh[(p + k) * stride];
+      b[k] += v;
+      w[k] = fmaf(op<BF16>(v), zz[k], w[k]);
+    }
+  }
+  return make_float2(sum4(b[0], b[1], b[2], b[3]),
+                     sum4(w[0], w[1], w[2], w[3]));
 }
 
 template <int TP, bool BF16>
@@ -681,41 +845,37 @@ __global__ void __launch_bounds__(NT, 1)
                      const float* __restrict__ wpt,
                      const float* __restrict__ params,
                      float* __restrict__ partials, Offsets off, Consts cs,
-                     Dims d) {
+                     Dims d, FlowLayout fl) {
   constexpr int TPS = TP + 4;
+  constexpr int NL = NT / TP;  // lanes of one point in the flow backward
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int F = d.F, H2 = 2 * d.H, W = d.W, L = d.L, N = d.N;
   const int tid = threadIdx.x;
   const int tile = blockIdx.x, g = blockIdx.y;
+  // the flow backward: lane q of point pp (a point's lanes are adjacent)
+  const int q = tid % NL, pp = tid / NL;
 
   // shared layout, in rows of TPS floats
   float* XS = sm;              // 2: points
   float* TG = XS + 2 * TPS;    // 1: targets
   float* WP = TG + TPS;        // 1: point weights
-  float* ZC = WP + TPS;        // 2: current z
-  float* XD = ZC + 2 * TPS;    // 2: ICNN input (inverse-normed flow output)
+  float* XD = WP + TPS;        // 2: ICNN input (inverse-normed flow output)
   float* DXD = XD + 2 * TPS;   // 2: dL/dxd
-  float* GZ = DXD + 2 * TPS;   // 2: dL/dz through the flow
-  float* ZM = GZ + 2 * TPS;    // 2: masked coupling input
-  float* CT = ZM + 2 * TPS;    // 4: per-point terms of small sums
-  float* DST = CT + 4 * TPS;   // 4: dL/d(s|t) before the tanh
-  float* GY = DST + 4 * TPS;   // 1: dL/dy
+  float* GZ = DXD + 2 * TPS;   // 2: dL/dz at the flow's output
+  float* GY = GZ + 2 * TPS;    // 1: dL/dy
   float* LS = GY + TPS;        // 1: per-point loss
-  float* ZIN = LS + TPS;       // 2F: coupling inputs
-  float* ZPRE = ZIN + 2 * F * TPS;  // 2F: pre-ActNorm z
-  float* ST = ZPRE + 2 * F * TPS;   // 4F: post-tanh s|t
-  float* U = ST + 4 * F * TPS;      // union: ICNN rows, or flow rows
-  float* D0 = U;                    // W: ICNN grad buffers
-  float* D1 = D0 + W * TPS;         // W
-  float* HB = D1 + W * TPS;         // (L+1)W: ICNN post-relu activations
-  float* HF = U;                    // 2H: flow hidden layer
-  float* DHA = U + H2 * TPS;        // 2H: its grad
-  float* AS = sm + smem_rows(F, d.H, W, L) * TPS;  // 2 weight slabs, or
-  float* FW1 = AS;                                  // one flow step's
-  float* FB1 = FW1 + H2 * 2;                        // w1, b1, w2, b2
-  float* FW2 = FB1 + H2;
-  float* FB2 = FW2 + 4 * H2;
+  float* SV = LS + TPS;        // 4F: per flow step z0, z1 (its input), s, t
+  float* U = SV + 4 * F * TPS;  // union: the ICNN's rows, or the flow's
+  float* D0 = U;                // W: ICNN grad buffers
+  float* D1 = D0 + W * TPS;     // W
+  float* HB = D1 + W * TPS;     // (L+1)W: ICNN post-relu activations
+  float* TB = U;                // the flow backward's term buffers
+  float* AS = U + fl.u;         // the ICNN's 2 weight slabs
+  float* FWT = AS + stage_floats(TP, BF16);  // the flow's weights (F steps)
+  // 4 rows of per-point terms of the translation's sums, after the flow
+  // backward: in a term buffer no thread reads any more
+  float* CT = TB + (fl.nbuf == 2 ? fl.buf : 0);
 
   const float* X = x + (size_t)g * d.xs;
   const float* P = params + (size_t)g * off.P;
@@ -733,73 +893,75 @@ __global__ void __launch_bounds__(NT, 1)
 #ifdef FLAGSHIP_PROFILE
   long long phase_t0 = clock64();
 #endif
+  stage_flow<BF16>(FWT, fl, F, H2, w1, b1, w2, b2, an_s, an_t);
   const int c0 = tile * d.chunks;
   const int c1 = min(c0 + d.chunks, d.n_chunks);
   for (int c = c0; c < c1; ++c) {
     const bool first = c == c0;
     const int base = c * TP;
 
-    // ---- load, translate, pre-norm ----
+    // ---- load ----
     for (int p = tid; p < TP; p += NT) {
       const int n = base + p;
       const bool v = n < N;
-      const float x0 = v ? X[2 * n] : 0.f, x1 = v ? X[2 * n + 1] : 0.f;
-      XS[p] = x0;
-      XS[TPS + p] = x1;
+      XS[p] = v ? X[2 * n] : 0.f;
+      XS[TPS + p] = v ? X[2 * n + 1] : 0.f;
       TG[p] = v ? tgt[(size_t)g * N + n] : 0.f;
       WP[p] = v ? wpt[(size_t)g * N + n] : 0.f;
-      ZC[p] = (x0 * wt[0] + bt[0]) * cs.pre_a[0] + cs.pre_b[0];
-      ZC[TPS + p] = (x1 * wt[1] + bt[1]) * cs.pre_a[1] + cs.pre_b[1];
     }
-    stage_flow<BF16>(AS, w1, b1, w2, b2, 0, H2);
     __syncthreads();
     PHASE(0);
 
-    // ---- forward: flow ----
-    for (int i = 0; i < F; ++i) {
-      const int keep = i & 1;
-      const float bm0 = keep == 0 ? 1.f : 0.f, bm1 = 1.f - bm0;
-      // s|t = w2 @ relu(w1 @ zm + b1) + b2, h formed on the fly: each of
-      // the 4 output rows of a point recomputes the point's h
-      for (int e = tid; e < 4 * TP; e += NT) {
-        const int r = e / TP, p = e % TP;
-        const float zm0 = op<BF16>(ZC[p] * bm0);
-        const float zm1 = op<BF16>(ZC[TPS + p] * bm1);
+    // ---- forward: translate, pre-norm, flow ----
+    // Two lanes of one warp per point, one for the s row and one for the t
+    // row of the channel the flow transforms (the rows that reach the
+    // output), hold its z in registers through all F steps and swap s and
+    // t by a shuffle: no barrier. Each lane sums its row unit by unit in
+    // index order (one FMA chain, as the plain version's product does), so
+    // the forward rounds as the plain version does: a sum in another
+    // order moves the last bits of the ICNN's inputs, and with them relu
+    // decisions at points near a kink, past the kernel's tolerance. The
+    // other warps wait at the barrier below.
+    if (tid < 2 * TP) {  // whole warps
+      const int fp = tid >> 1, row = tid & 1;  // row 0: s, 1: t
+      float z0 = (XS[fp] * wt[0] + bt[0]) * cs.pre_a[0] + cs.pre_b[0];
+      float z1 = (XS[TPS + fp] * wt[1] + bt[1]) * cs.pre_a[1] + cs.pre_b[1];
+      for (int i = 0; i < F; ++i) {
+        const int keep = i & 1, kk = keep ^ 1;
+        const float* sw = FWT + i * fl.ss;
+        const float* w2r = sw + (2 + row) * fl.hp;
+        const float zk = keep ? z1 : z0, zt = keep ? z0 : z1;
+        const float zm = op<BF16>(zk);
         float acc = 0.f;
-        for (int j = 0; j < H2; ++j)
-          acc = fmaf(FW2[r * H2 + j],
-                     op<BF16>(flow_h(FW1, FB1, j, zm0, zm1)), acc);
-        float v = acc + FB2[r];
+#pragma unroll 4
+        for (int b = 0; b < H2; b += 4) {  // padded units are 0 past H2
+          const float4 a = ld4(sw + b), bb = ld4(sw + fl.hp + b);
+          const float4 w = ld4(w2r + b);
+          acc = fmaf(w.x, op<BF16>(flow_h(a.x, bb.x, zm)), acc);
+          acc = fmaf(w.y, op<BF16>(flow_h(a.y, bb.y, zm)), acc);
+          acc = fmaf(w.z, op<BF16>(flow_h(a.z, bb.z, zm)), acc);
+          acc = fmaf(w.w, op<BF16>(flow_h(a.w, bb.w, zm)), acc);
+        }
+        float v = acc + sw[4 * fl.hp + row];
         if (d.use_tanh) v = tanhf(v);
-        ST[(4 * i + r) * TPS + p] = v;
+        const float o = __shfl_xor_sync(0xffffffffu, v, 1);
+        const float s = row ? o : v, t = row ? v : o;
+        SV[(4 * i + row) * TPS + fp] = row ? z1 : z0;
+        SV[(4 * i + 2 + row) * TPS + fp] = v;
+        // coupling, then ActNorm (an = exp(an_s), an_t)
+        const float* an = sw + 4 * fl.hp + 2;
+        const float nk = fmaf(zk, an[keep], an[2 + keep]);
+        const float nt = fmaf(fmaf(zt, expf(s), t), an[kk], an[2 + kk]);
+        z0 = keep ? nt : nk;
+        z1 = keep ? nk : nt;
       }
-      for (int e = tid; e < 2 * TP; e += NT) {
-        const int k = e / TP, p = e % TP;
-        ZIN[(2 * i + k) * TPS + p] = ZC[k * TPS + p];
-      }
-      __syncthreads();
-      PHASE(1);
-      for (int e = tid; e < 2 * TP; e += NT) {
-        const int k = e / TP, p = e % TP;
-        const float b = k == keep ? 1.f : 0.f;
-        const float z = ZC[k * TPS + p];
-        const float s = ST[(4 * i + k) * TPS + p];
-        const float t = ST[(4 * i + 2 + k) * TPS + p];
-        const float zn = z * b + (1.f - b) * (z * expf(s) + t);
-        ZPRE[(2 * i + k) * TPS + p] = zn;
-        ZC[k * TPS + p] = zn * expf(an_s[2 * i + k]) + an_t[2 * i + k];
-      }
-      if (i + 1 < F) stage_flow<BF16>(AS, w1, b1, w2, b2, i + 1, H2);
-      __syncthreads();
-      PHASE(2);
-    }
-
-    // ---- forward: inverse norm, ICNN ----
-    for (int e = tid; e < 2 * TP; e += NT) {
-      const int k = e / TP, p = e % TP;
-      XD[k * TPS + p] = ZC[k * TPS + p] * cs.post_a[k] + cs.post_b[k];
+      XD[row * TPS + fp] = row ? z1 * cs.post_a[1] + cs.post_b[1]
+                               : z0 * cs.post_a[0] + cs.post_b[0];
     }
     __syncthreads();
+    PHASE(1);
+
+    // ---- forward: ICNN ----
     for (int e = tid; e < W * TP; e += NT) {
       const int m = e / TP, p = e % TP;
       const float v = fmaf(op<BF16>(win[2 * m + 1]), op<BF16>(XD[TPS + p]),
@@ -822,7 +984,7 @@ __global__ void __launch_bounds__(NT, 1)
       else
         mm_rows<TP>(W, W, wl, W, 1, HB + l * W * TPS, AS, epi);
       __syncthreads();
-      PHASE(3);
+      PHASE(2);
     }
     const float* HL = HB + L * W * TPS;
 
@@ -848,7 +1010,7 @@ __global__ void __launch_bounds__(NT, 1)
       GY[p] = gy;
     }
     __syncthreads();
-    PHASE(4);
+    PHASE(3);
 
     // ---- backward: ICNN output layer ----
     {
@@ -874,7 +1036,7 @@ __global__ void __launch_bounds__(NT, 1)
       DXD[k * TPS + p] = op<BF16>(wosk[k]) * op<BF16>(GY[p]);
     }
     __syncthreads();
-    PHASE(5);
+    PHASE(4);
 
     // ---- backward: ICNN blocks; D0 holds dz of layer l+1 ----
     const float* wx[3] = {XD, XD + TPS, ONE};
@@ -888,7 +1050,7 @@ __global__ void __launch_bounds__(NT, 1)
         wgrad_bf16<TP>(W, W, D0, hin, gwl, W, first, AS);
       else
         wgrad_tiled<TP>(W, W, D0, hin, gwl, W, first);
-      PHASE(6);
+      PHASE(5);
       float* o_skip[3] = {part + off.f[WSK] + l * W * 2,
                           part + off.f[WSK] + l * W * 2 + 1,
                           part + off.f[BLN] + l * W};
@@ -901,7 +1063,7 @@ __global__ void __launch_bounds__(NT, 1)
                      op<BF16>(D0[m * TPS + p]), acc);
         DXD[k * TPS + p] += acc;
       }
-      PHASE(7);
+      PHASE(6);
       float* dnext = D1;
       auto mask = [&](int k, int p, float acc) {
         dnext[k * TPS + p] = hin[k * TPS + p] > 0.f ? acc : 0.f;
@@ -911,7 +1073,7 @@ __global__ void __launch_bounds__(NT, 1)
       else
         mm_rows<TP>(W, W, wl, 1, W, D0, AS, mask);
       __syncthreads();
-      PHASE(8);
+      PHASE(7);
       float* tmp = D0;
       D0 = D1;
       D1 = tmp;
@@ -932,97 +1094,145 @@ __global__ void __launch_bounds__(NT, 1)
       GZ[k * TPS + p] = dxd * cs.post_a[k];
     }
     __syncthreads();
-    PHASE(9);
+    PHASE(8);
 
-    // ---- backward: flow (h recomputed from the saved coupling input) ----
+    // ---- backward: flow ----
+    // Per step, a point's lanes recompute its hidden units from the saved
+    // coupling input (as `_kernel_interleaved` does) and form dh and their
+    // share of dz (lane_sum); dL/dz stays in registers. The terms of the
+    // step's weight, bias and ActNorm grads go to a term buffer, and after
+    // one barrier each thread sums an output over the chunk's points.
+    float g0 = GZ[pp], g1 = GZ[TPS + pp];
     for (int i = F - 1; i >= 0; --i) {
-      const int keep = i & 1;
-      stage_flow<BF16>(AS, w1, b1, w2, b2, i, H2);
-      for (int e = tid; e < 2 * TP; e += NT) {
-        const int k = e / TP, p = e % TP;
-        const float b = k == keep ? 1.f : 0.f, inv_b = 1.f - b;
-        const float es_an = expf(an_s[2 * i + k]);
-        float gz = GZ[k * TPS + p];
-        CT[k * TPS + p] = gz * ZPRE[(2 * i + k) * TPS + p] * es_an;
-        CT[(2 + k) * TPS + p] = gz;
-        gz = gz * es_an;
-        const float zin = ZIN[(2 * i + k) * TPS + p];
-        ZM[k * TPS + p] = op<BF16>(zin * b);  // read by products only
-        const float s = ST[(4 * i + k) * TPS + p];
-        const float t = ST[(4 * i + 2 + k) * TPS + p];
-        float ds = inv_b * gz * zin * expf(s);
-        float dt = inv_b * gz;
-        if (d.use_tanh) {
-          ds = ds * (1.f - s * s);
-          dt = dt * (1.f - t * t);
-        }
-        DST[k * TPS + p] = ds;
-        DST[(2 + k) * TPS + p] = dt;
-        GZ[k * TPS + p] = gz;
+      const int keep = i & 1, kk = keep ^ 1;
+      const float* sw = FWT + i * fl.ss;
+      const float* an = sw + 4 * fl.hp + 2;
+      float* HT = TB + (fl.nbuf == 2 ? i & 1 : 0) * fl.buf;  // h, point-major
+      float* DH = HT + TP * fl.rs;                           // dh
+      // scalar rows: 0 ds, 1 dt, 2 zm, 3 at1, 4 as0, 5 as1, 6 at0, 7 r(ds),
+      // 8 r(dt) (r: rounded in the bf16 build)
+      float* SC = DH + TP * fl.rs;
+      const float* sv = SV + 4 * i * TPS + pp;
+      const float s = sv[2 * TPS], t = sv[3 * TPS];
+      const float zk = keep ? sv[TPS] : sv[0], zt = keep ? sv[0] : sv[TPS];
+      const float es = expf(s);
+      float gk = keep ? g1 : g0, gt = keep ? g0 : g1;
+      // ActNorm: the grads' terms, then dL/d(pre-ActNorm z)
+      const float ask = gk * zk * an[keep];
+      const float ast = gt * fmaf(zt, es, t) * an[kk];
+      const float atk = gk, att = gt;
+      gk *= an[keep];
+      gt *= an[kk];
+      // coupling: dL/d(s|t) of the transformed channel (0 for the kept one)
+      float ds = gt * zt * es, dt = gt;
+      if (d.use_tanh) {
+        ds = ds * (1.f - s * s);
+        dt = dt * (1.f - t * t);
       }
+      const float zm = op<BF16>(zk);
+      const float dsr = op<BF16>(ds), dtr = op<BF16>(dt);
+      float dz = 0.f;
+#pragma unroll 4
+      for (int b = 4 * q; b < fl.hp; b += 4 * NL) {
+        const float4 a = ld4(sw + b), bb = ld4(sw + fl.hp + b);
+        const float4 ws = ld4(sw + 2 * fl.hp + b);
+        const float4 wt4 = ld4(sw + 3 * fl.hp + b);
+        float4 h, dh;
+        h.x = flow_h(a.x, bb.x, zm);
+        h.y = flow_h(a.y, bb.y, zm);
+        h.z = flow_h(a.z, bb.z, zm);
+        h.w = flow_h(a.w, bb.w, zm);
+        dh.x = h.x > 0.f ? fmaf(wt4.x, dtr, ws.x * dsr) : 0.f;
+        dh.y = h.y > 0.f ? fmaf(wt4.y, dtr, ws.y * dsr) : 0.f;
+        dh.z = h.z > 0.f ? fmaf(wt4.z, dtr, ws.z * dsr) : 0.f;
+        dh.w = h.w > 0.f ? fmaf(wt4.w, dtr, ws.w * dsr) : 0.f;
+        dz = fmaf(a.x, op<BF16>(dh.x), dz);
+        dz = fmaf(a.y, op<BF16>(dh.y), dz);
+        dz = fmaf(a.z, op<BF16>(dh.z), dz);
+        dz = fmaf(a.w, op<BF16>(dh.w), dz);
+        // h feeds only w2's grads, a product: store it rounded
+        *reinterpret_cast<float4*>(HT + pp * fl.rs + b) =
+            make_float4(op<BF16>(h.x), op<BF16>(h.y), op<BF16>(h.z),
+                        op<BF16>(h.w));
+        *reinterpret_cast<float4*>(DH + pp * fl.rs + b) = dh;
+      }
+      dz = lane_sum<NL>(dz);
+      if (q < 4) {
+        SC[q * TPS + pp] = q == 0 ? ds : q == 1 ? dt : q == 2 ? zm
+                         : keep ? atk : att;
+        if (q < 3)
+          SC[(4 + q) * TPS + pp] = q == 0 ? (keep ? ast : ask)
+                                 : q == 1 ? (keep ? ask : ast)
+                                          : (keep ? att : atk);
+        if (q < 2) SC[(7 + q) * TPS + pp] = q == 0 ? dsr : dtr;
+      }
+      g0 = keep ? gt * es : gk + dz;
+      g1 = keep ? gk + dz : gt * es;
       __syncthreads();
+      PHASE(9);
+      // a thread per output, summed over the chunk's points in a fixed
+      // order: per unit j its w2 grad (the in-block row of kk; the other
+      // rows are 0: masked, or a kept channel's), then per unit its b1 and
+      // w1 grads from one read of its dh column (w1's kept channel; the
+      // other column multiplies zm's zero), then the two an_s, the two
+      // an_t and the two live b2 grads
+      float* gw1 = part + off.f[W1] + i * H2 * 2;
+      float* gw2 = part + off.f[W2] + i * 4 * H2;
+      float* gb2 = part + off.f[B2] + 4 * i;
+      for (int o = tid; o < 2 * H2 + 6; o += NT) {
+        if (o < H2) {
+          const int j = o;
+          const bool in_s = j < d.H;  // unit j feeds s (else t)
+          float* dst = gw2 + (in_s ? kk : 2 + kk) * H2 + j;
+          const float old = first ? 0.f : __ldcg(dst);
+          if (first) {
+            __stcg(gw2 + (in_s ? 2 + kk : kk) * H2 + j, 0.f);
+            __stcg(gw2 + keep * H2 + j, 0.f);
+            __stcg(gw2 + (2 + keep) * H2 + j, 0.f);
+          }
+          __stcg(dst, old + col_dot<TP>(HT + j, fl.rs,
+                                        SC + (in_s ? 7 : 8) * TPS));
+        } else if (o < 2 * H2) {
+          const int j = o - H2;
+          float* db1 = part + off.f[B1] + i * H2 + j;
+          float* dw1 = gw1 + 2 * j + keep;
+          const float old_b = first ? 0.f : __ldcg(db1);
+          const float old_w = first ? 0.f : __ldcg(dw1);
+          if (first) __stcg(gw1 + 2 * j + kk, 0.f);
+          const float2 v = dh_sums<TP, BF16>(DH + j, fl.rs, SC + 2 * TPS);
+          __stcg(db1, old_b + v.x);
+          __stcg(dw1, old_w + v.y);
+        } else {
+          // SC rows 4, 5: as0, as1; 6, 3: at0, at1; 0, 1: ds, dt
+          const int k = o - 2 * H2;
+          const int rows[6] = {4, 5, 6, 3, 0, 1};
+          float* dsts[6] = {part + off.f[AN_S] + 2 * i,
+                            part + off.f[AN_S] + 2 * i + 1,
+                            part + off.f[AN_T] + 2 * i,
+                            part + off.f[AN_T] + 2 * i + 1, gb2 + kk,
+                            gb2 + 2 + kk};
+          int row = 0;
+          float* dst = nullptr;
+#pragma unroll
+          for (int kx = 0; kx < 6; ++kx) {  // constant indices
+            if (kx == k) {
+              row = rows[kx];
+              dst = dsts[kx];
+            }
+          }
+          const float old = first ? 0.f : __ldcg(dst);
+          if (first && k >= 4) __stcg(gb2 + (k == 4 ? keep : 2 + keep), 0.f);
+          __stcg(dst, old + row_sum<TP>(SC + row * TPS));
+        }
+      }
+      if (fl.nbuf == 1) __syncthreads();
       PHASE(10);
-      {
-        const float* w1v[1] = {ONE};
-        const int ld1[1] = {1};
-        float* o_s[1] = {part + off.f[AN_S] + 2 * i};
-        float* o_t[1] = {part + off.f[AN_T] + 2 * i};
-        float* o_b2[1] = {part + off.f[B2] + 4 * i};
-        rowdots<TP, 1, BF16>(2, CT, w1v, o_s, ld1, first);
-        rowdots<TP, 1, BF16>(2, CT + 2 * TPS, w1v, o_t, ld1, first);
-        rowdots<TP, 1, BF16>(4, DST, w1v, o_b2, ld1, first);
-      }
-      for (int e = tid; e < H2 * TP; e += NT) {
-        const int j = e / TP, p = e % TP;
-        const float h = flow_h(FW1, FB1, j, ZM[p], ZM[TPS + p]);
-        float acc = 0.f;
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc = fmaf(FW2[r * H2 + j], op<BF16>(DST[r * TPS + p]), acc);
-        HF[j * TPS + p] = h;
-        DHA[j * TPS + p] = h > 0.f ? acc : 0.f;
-      }
-      __syncthreads();
-      PHASE(11);
-      {
-        const float* wd[4] = {DST, DST + TPS, DST + 2 * TPS, DST + 3 * TPS};
-        float* o_w2[4];
-        int ldw2[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          o_w2[r] = part + off.f[W2] + i * 4 * H2 + r * H2;
-          ldw2[r] = 1;
-        }
-        rowdots<TP, 4, BF16>(H2, HF, wd, o_w2, ldw2, first, d.H);
-      }
-      {
-        const float* wz[3] = {ZM, ZM + TPS, ONE};
-        float* o_w1[3] = {part + off.f[W1] + i * H2 * 2,
-                          part + off.f[W1] + i * H2 * 2 + 1,
-                          part + off.f[B1] + i * H2};
-        const int ldw1[3] = {2, 2, 1};
-        rowdots<TP, 3, BF16>(H2, DHA, wz, o_w1, ldw1, first);
-      }
-      for (int e = tid; e < 2 * TP; e += NT) {
-        const int k = e / TP, p = e % TP;
-        float dzm = 0.f;
-        for (int j = 0; j < H2; ++j)
-          dzm = fmaf(FW1[2 * j + k], op<BF16>(DHA[j * TPS + p]), dzm);
-        const float b = k == keep ? 1.f : 0.f, inv_b = 1.f - b;
-        const float gz = GZ[k * TPS + p];
-        const float es = expf(ST[(4 * i + k) * TPS + p]);
-        GZ[k * TPS + p] = b * gz + inv_b * gz * es + b * dzm;
-      }
-      __syncthreads();
-      PHASE(12);
     }
 
     // ---- backward: pre-norm affine and translation ----
-    for (int e = tid; e < 2 * TP; e += NT) {
-      const int k = e / TP, p = e % TP;
-      const float dx1 = GZ[k * TPS + p] * cs.pre_a[k];
-      CT[k * TPS + p] = dx1 * XS[k * TPS + p];
-      CT[(2 + k) * TPS + p] = dx1;
+    if (q < 4) {
+      const float dx1 = q & 1 ? g1 * cs.pre_a[1] : g0 * cs.pre_a[0];
+      CT[q * TPS + pp] = q < 2 ? dx1 * XS[q * TPS + pp] : dx1;
     }
     __syncthreads();
     {
@@ -1034,7 +1244,7 @@ __global__ void __launch_bounds__(NT, 1)
       rowdots<TP, 1, BF16>(2, CT + 2 * TPS, w1v, o_bt, ld1, first);
     }
     __syncthreads();
-    PHASE(13);
+    PHASE(11);
   }
 }
 
@@ -1059,8 +1269,9 @@ cudaError_t launch(const float* x, const float* tgt, const float* wpt,
       flagship_fwd_bwd<TP, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
+  const FlowLayout fl = flow_layout(TP, d.F, d.H, d.W, d.L);
   flagship_fwd_bwd<TP, BF16><<<dim3(n_tiles, G), NT, smem, stream>>>(
-      x, tgt, wpt, params, partials, off, cs, d);
+      x, tgt, wpt, params, partials, off, cs, d, fl);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int P1 = off.P + 1;

@@ -393,6 +393,16 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 LIBRARY = Library("flagship.cu", _declare)
 
+# what each PHASE(k) counter of the kernel's profiled build
+# (-DFLAGSHIP_PROFILE) times, by k
+PROFILE_PHASES = (
+    "load", "flow fwd", "icnn fwd", "loss", "icnn out-layer bwd",
+    "icnn weight grads (wln)", "icnn skip/bias grads + dx", "icnn bwd data",
+    "icnn input-layer bwd", "flow bwd: h, dh, dz, terms",
+    "flow bwd: sums over points",
+    "translate bwd",
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class LaunchShape:

@@ -18,7 +18,9 @@ Phases, each printing its own line (any failure exits nonzero):
    1e-5, grads rtol 5e-4 atol 1e-6; two launches bitwise equal; then
    per-image points (G = 8, N = 64*64 and 4097) at the same tolerances,
    where a shared-point launch must equal, bitwise, the per-image launch
-   with the points repeated; then the bf16 build against the plain bf16
+   with the points repeated; K2 at G = 8 x 480x640 at the same tolerances,
+   its G x tiles per image at most the card's resident blocks (one wave);
+   then the bf16 build against the plain bf16
    version (bench model at 480x640, G = 1; at 64x64, G = 8; the 3-layer
    ICNN's 32-point instantiation, G = 2): the loss and every packed leaf
    within a tenth of the plain version's bf16-vs-FP32 gap, by
@@ -397,6 +399,32 @@ def per_image_checks(device) -> None:
                           "points": "per_image", "n": n, "g": 8,
                           "max_abs_err": err, "bitwise_repeat": True,
                           "shared_equals_repeated": True}), flush=True)
+
+
+def full_resolution_k2_check(device) -> None:
+    """K2 at G = 8 x 480x640 (the multi-object children's fit at full
+    resolution) against the plain version, and its launch in one wave: G
+    x tiles per image at most the card's SMs x resident blocks per SM."""
+    import torch
+
+    from awesome_tpu_torch.ops import flagship
+
+    n, g = 480 * 640, 8
+    model = bench_model((480, 640), device)
+    spec = flagship.FlagshipSpec.of(model)
+    shape = flagship.launch_shape(spec, n, g, None, torch.device(device))
+    per_sm = flagship.LIBRARY.get().flagship_blocks_per_sm(
+        torch.cuda.current_device(), shape.tp, 0, shape.smem)
+    slots = torch.cuda.get_device_properties(0).multi_processor_count * per_sm
+    if g * shape.n_tiles > slots:
+        raise AssertionError(f"K2 at G={g} x {n}: {g * shape.n_tiles} "
+                             f"blocks for {slots} resident slots")
+    err = kernel_vs_plain(model, n, g, 18, device)
+    print(json.dumps({"phase": "kernel_vs_plain", "model": "bench", "n": n,
+                      "g": g, "tp": shape.tp, "chunks": shape.chunks,
+                      "n_tiles": shape.n_tiles, "blocks": g * shape.n_tiles,
+                      "resident_slots": slots, "max_abs_err": err,
+                      "bitwise_repeat": True}), flush=True)
 
 
 def _nrel(a, b) -> float:
@@ -3868,6 +3896,7 @@ def main() -> int:
                                   "smem": shape.smem, "max_abs_err": err,
                                   "bitwise_repeat": True}), flush=True)
     per_image_checks(dev)
+    full_resolution_k2_check(dev)
     print(f"kernel_vs_plain: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
     bf16_checks(dev)

@@ -26,10 +26,11 @@ def cuda_device():
 
 
 def _flagship_inputs(device, width, layers, seed, g=2, n=4097,
-                     per_image=False):
-    """The bench model's flow with an ICNN of ``width`` x ``layers``, G
-    perturbed param rows, points (N, 2) or (G, N, 2), targets, weights."""
-    tm = t_factory(channels=2, hidden_units=32, flow_n_flows=12,
+                     per_image=False, hidden=32, flows=12):
+    """The bench model's flow (or one of ``hidden`` x ``flows``) with an
+    ICNN of ``width`` x ``layers``, G perturbed param rows, points (N, 2)
+    or (G, N, 2), targets, weights."""
+    tm = t_factory(channels=2, hidden_units=hidden, flow_n_flows=flows,
                    flow_output_fn="tanh", spatial_shape=(64, 64),
                    convex_net_hidden_units=width,
                    convex_net_hidden_layers=layers, device=device)
@@ -89,6 +90,57 @@ def test_cuda_k2_sixteen_images_match_plain(cuda_device):
     _assert_fp32_close(loss, grads, ref_loss, ref, 16)
 
 
+@pytest.mark.gpu
+def test_cuda_k2_eight_full_resolution_images_match_plain(cuda_device):
+    """K2 at G = 8 x 480x640 (the multi-object children's fit at full
+    resolution) against the plain version; two launches bitwise equal. Its
+    blocks fit in one wave: G x tiles per image at most the card's SMs x
+    resident blocks per SM (one block per SM at the bench model's shared
+    memory)."""
+    n, g = 480 * 640, 8
+    spec, stacked, flat, x, tgt, wts = _flagship_inputs(
+        cuda_device, 130, 2, 18, g=g, n=n)
+    shape = TP.launch_shape(spec, n, g, None, x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    assert g * shape.n_tiles <= sms
+    assert shape.chunks * shape.n_tiles >= -(-n // shape.tp)
+    f = TP.FlagshipLossGrad(spec, True, g, None)
+    loss, grads = f.flat(flat, x, tgt, wts)
+    loss2, grads2 = f.flat(flat, x, tgt, wts)
+    assert torch.equal(loss, loss2) and torch.equal(grads, grads2)
+    ref_loss, ref = TP.flagship_loss_grad_plain(spec, stacked, x, tgt, wts)
+    _assert_fp32_close(loss, grads, ref_loss, ref, g)
+
+
+# (flow hidden units, flows, ICNN width, ICNN layers, points per chunk):
+# 2H = 26 and 260 are no multiple of the 4 x lanes-per-point units of a
+# lane group (16 at 64-point chunks, 32 at 32-point chunks), so both
+# instantiations run padded units; 5 and 3 flows are odd (the last flow
+# keeps channel 0); at hidden 130 one term buffer fits (two barriers a
+# backward step), at hidden 13 two
+ODD_FLOWS = [(13, 5, 130, 2, 64), (13, 5, 130, 3, 32), (130, 5, 130, 2, 64),
+             (130, 3, 130, 3, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,flows,width,layers,tp", ODD_FLOWS)
+def test_cuda_kernel_odd_flows_match_plain(cuda_device, hidden, flows, width,
+                                           layers, tp):
+    """Flows whose 2H the lanes of a point do not divide, at an odd number
+    of flows, against the plain version (ragged N, G = 2); two launches
+    bitwise equal."""
+    spec, stacked, flat, x, tgt, wts = _flagship_inputs(
+        cuda_device, width, layers, hidden + flows, hidden=hidden,
+        flows=flows)
+    assert TP.launch_shape(spec, x.shape[0], 2, None, x.device).tp == tp
+    f = TP.FlagshipLossGrad(spec, True, 2, None)
+    loss, grads = f.flat(flat, x, tgt, wts)
+    loss2, grads2 = f.flat(flat, x, tgt, wts)
+    assert torch.equal(loss, loss2) and torch.equal(grads, grads2)
+    ref_loss, ref = TP.flagship_loss_grad_plain(spec, stacked, x, tgt, wts)
+    _assert_fp32_close(loss, grads, ref_loss, ref, 2)
+
+
 def _nrel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b)
                  / torch.linalg.vector_norm(b))
@@ -126,6 +178,20 @@ def test_cuda_bf16_kernel_matches_plain(cuda_device, width, layers, tp):
     160 at 32-point tiles)."""
     spec, stacked, flat, x, tgt, wts = _flagship_inputs(
         cuda_device, width, layers, width + layers + 2)
+    assert TP.launch_shape(spec, x.shape[0], 2, None, x.device,
+                           use_bf16=True).tp == tp
+    _assert_bf16_within_gap(spec, stacked, flat, x, tgt, wts, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,flows,width,layers,tp", ODD_FLOWS)
+def test_cuda_bf16_odd_flows_match_plain(cuda_device, hidden, flows, width,
+                                         layers, tp):
+    """The bf16 build of the odd flows against the plain bf16 version by
+    the gap rule (ragged N, G = 2)."""
+    spec, stacked, flat, x, tgt, wts = _flagship_inputs(
+        cuda_device, width, layers, hidden + flows + 1, hidden=hidden,
+        flows=flows)
     assert TP.launch_shape(spec, x.shape[0], 2, None, x.device,
                            use_bf16=True).tp == tp
     _assert_bf16_within_gap(spec, stacked, flat, x, tgt, wts, 2)
