@@ -153,6 +153,19 @@ def plot_mask(img: np.ndarray, mask: np.ndarray, color=(1.0, 0.5, 0.0),
     return fig
 
 
+def save_overlay(img: np.ndarray, mask: np.ndarray, path: str,
+                 color=(1.0, 0.5, 0.0), alpha: float = 0.4) -> str:
+    """:func:`plot_mask`'s filled overlay written as a PNG through PIL,
+    for machines without matplotlib; returns ``path``."""
+    from PIL import Image
+
+    out = np.clip(np.asarray(img, np.float64), 0, 1)
+    m = np.asarray(mask, bool)
+    out[m] = (1.0 - alpha) * out[m] + alpha * np.asarray(color)
+    Image.fromarray((out * 255).round().astype(np.uint8)).save(path)
+    return path
+
+
 def save_result(out_dir: str, index: int, image: np.ndarray,
                 seg_mask: np.ndarray, prior_mask: Optional[np.ndarray] = None,
                 unaries: Optional[np.ndarray] = None) -> Dict[str, str]:

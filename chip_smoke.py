@@ -157,11 +157,12 @@ Phases, each printing its own line (any failure exits nonzero):
     principal angle) from float64 ``eigsh`` on the same stencil, the host
     proxy's ms, no fallback to the host;
 21. the paper table (``paper_table_path``): ``python -m
-    awesome_tpu_torch.scripts.run_paper_table`` in a subprocess on 4 cells
-    (CNNNet xy with the prior, CNNNet featxy without, Net feat and FCNet
-    featxy with) with the 'spectral_device' proxy, 12 images of 64x64, 400
-    epochs, the script's global floors: exit 0, the table written, each
-    cell's MIOUs and seconds;
+    awesome_tpu_torch.scripts.run_paper_table`` in a subprocess on 3 cells
+    (CNNNet xy with the prior, CNNNet featxy without, FCNet featxy with;
+    Net feat dropped in PR 16 for the teaser phase) with the
+    'spectral_device' proxy, 12 images of 64x64, 400 epochs, the script's
+    global floors: exit 0, the table written, each cell's MIOUs and
+    seconds;
 22. the data and utilities (``data_utils_path``): ``fit_prior_fused``
     with the bench model at 480x640, 200 steps timed by ``DeviceTimer``
     (one K1 launch per step, a falling loss, params bitwise equal to
@@ -192,7 +193,17 @@ Phases, each printing its own line (any failure exits nonzero):
     with two workers on the card; ``dryrun_multichip(2)``; every rank's
     backend (gloo) and device (a card) as its mesh holds them (run
     folders in ``build/smoke_mesh/``);
-24. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
+24. the teaser harness (``teaser_path``, ``runner/teaser.py``): a
+    synthetic reference tree (``tools/teaser_tree.py``, 240x320 images,
+    60x80 temporal masks) under ``build/smoke_teaser/``; the nine
+    protocols through ``run_all`` at steps scale 0.002 with 2 restarts,
+    then the convex tomato at 210 of its 700 steps, which must beat its
+    naive input; each a finite loss, masks of the reference's shape, its seconds
+    and IoU; no kernel launched (the protocols fit the plain models, as
+    the JAX package does); one ``minibatch_fit`` at the convex teaser's
+    shape on the card and on the CPU with the same draws, loss histories
+    within rtol 2e-4;
+25. a ``kernels`` JSON line: per kernel (K1-K5, and the bf16 build of
     K1/K2) its time at its path's shape, its launches on that path, the
     steps, launches per step, its bound on this card, the plain version's
     time, and its error against the plain version at that shape; K2 also
@@ -202,7 +213,7 @@ Phases, each printing its own line (any failure exits nonzero):
     per-image points), K1 at the FBMS pretrain's (480x640, G = 1), and K2,
     K4 and K5 at a mesh rank's shapes (``"path": "mesh"``), each printed
     as a ``kernel_vs_plain`` line too;
-25. the card's name and power limit, and last the result line
+26. the card's name and power limit, and last the result line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Phases 5-8 also profile a 20-step window of their fit with
@@ -2244,10 +2255,11 @@ IMAGE_PRETRAIN = 100
 IMAGE_REFIT = 100
 UNET_SHAPES = ((160, 224), (192, 256))
 UNET_EPOCHS = 5
-# the paper-table phase: 4 cells of the grid at the script's n and size,
-# the epochs cut from 800
+# the paper-table phase: 3 cells of the grid at the script's n and size,
+# the epochs cut from 800 (PR 16 dropped the 'net+feat+prior' cell, its
+# slowest at 43-50 s, to make room for the teaser phase)
 PAPER_TABLE_CELLS = ("cnnnet+xy+prior", "cnnnet+featxy+noprior",
-                     "net+feat+prior", "fcnet+featxy+prior")
+                     "fcnet+featxy+prior")
 PAPER_TABLE_EPOCHS = 400
 
 
@@ -2607,7 +2619,7 @@ def spectral_path(device) -> dict:
 
 def paper_table_path(root: str) -> dict:
     """``python -m awesome_tpu_torch.scripts.run_paper_table`` in a
-    subprocess on 4 cells of the grid (``PAPER_TABLE_CELLS``) with the
+    subprocess on 3 cells of the grid (``PAPER_TABLE_CELLS``) with the
     'spectral_device' proxy, the script's n = 12 and 64x64 and its global
     floors, the epochs cut to ``PAPER_TABLE_EPOCHS``: exit 0, the table
     written; each cell's seg and prior MIOU and seconds."""
@@ -3340,6 +3352,122 @@ def _mesh_checks(device, ranks, single, single_runner, sweep, dry, runs,
     return out
 
 
+# The teaser harness (runner/teaser.py) on a synthetic reference tree
+# (tools/teaser_tree.py): every protocol through run_all at a small step
+# scale (the path-connected ones keep their 100 prefit steps), then the
+# convex tomato at 210 of its 700 steps
+TEASER_SHAPE = (240, 320)
+TEASER_FRAMES = (60, 80)  # the temporal teaser's masks
+TEASER_SCALE = 0.002
+TEASER_TOMATO_SCALE = 0.3
+TEASER_RESTARTS = 2
+TEASER_FIT_STEPS = 50
+TEASER_FIT_RTOL = 2e-4  # the fit tolerance of tests/test_fused_fit.py:37
+
+
+def teaser_fit_card_vs_cpu(device, steps: int = TEASER_FIT_STEPS) -> dict:
+    """One ``minibatch_fit`` at the convex teaser's shape (ConvexNextNet
+    150 x 1, 2000 points a class a step, Adam lr 1e-2, the concatenated
+    mean) on the card and on the CPU from one init with the same draws
+    (drawn once on the CPU): the loss histories within
+    ``TEASER_FIT_RTOL``, step by step."""
+    import torch
+
+    from awesome_tpu_torch.core.tree import tree_map
+    from awesome_tpu_torch.nn.icnn import ConvexNextNet
+    from awesome_tpu_torch.runner import teaser as T
+
+    h, w = 480, 640
+    inside = ellipse_target(h, w, "cpu").reshape(-1).numpy() < 0.5
+    pts = T.centered_points(h, w, "cpu")
+    sel = torch.as_tensor(inside)
+    pts0, pts1 = pts[sel], pts[~sel]
+    draws = T._draw_indices(torch.Generator().manual_seed(5), steps, 2000,
+                            len(pts0), len(pts1))
+    cpu_model = ConvexNextNet(n_hidden=150, n_hidden_layers=1, device="cpu")
+    init = cpu_model.init(torch.Generator().manual_seed(0))
+    own = T._draw_indices
+    T._draw_indices = lambda gen, *a: tuple(d.to(gen.device) for d in draws)
+    hists, secs = {}, {}
+    try:
+        for where in (device, "cpu"):
+            model = ConvexNextNet(n_hidden=150, n_hidden_layers=1,
+                                  device=where)
+            params = tree_map(lambda a, w=where: a.to(w), init)
+            t0 = time.perf_counter()
+            _, hist = T.minibatch_fit(model, params, pts0.to(where),
+                                      pts1.to(where), steps=steps,
+                                      n_sample=2000, lr=1e-2, loss="se",
+                                      concat_mean=True)
+            hists[str(where)] = hist.cpu().numpy()
+            secs[str(where)] = time.perf_counter() - t0
+    finally:
+        T._draw_indices = own
+    card, cpu = hists[str(device)], hists["cpu"]
+    check_hist(card, "the teaser's minibatch fit on the card")
+    err = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    if not err <= TEASER_FIT_RTOL:
+        raise AssertionError(f"minibatch_fit card vs CPU: loss histories "
+                             f"differ by {err} > rtol {TEASER_FIT_RTOL}")
+    return {"steps": steps, "max_rel_diff": err, "rtol": TEASER_FIT_RTOL,
+            "loss_first": float(card[0]), "loss_last": float(card[-1]),
+            "seconds": secs}
+
+
+def teaser_path(device, root: str) -> dict:
+    """The nine teaser protocols on a synthetic reference tree
+    (``TEASER_SHAPE`` images, ``TEASER_FRAMES`` temporal masks) written
+    under ``root``: ``run_all`` at ``TEASER_SCALE`` with
+    ``TEASER_RESTARTS`` restarts, then the convex tomato at
+    ``TEASER_TOMATO_SCALE`` of its 700 steps, which must beat its naive
+    input (``tests/test_reference_images.py:34-36``); each a finite loss
+    and masks of the reference's shape, its seconds and IoU printed; then
+    :func:`teaser_fit_card_vs_cpu`."""
+    import shutil
+
+    from awesome_tpu_torch.runner import teaser as T
+    from tools.teaser_tree import write_tree
+
+    shutil.rmtree(root, ignore_errors=True)
+    write_tree(root, *TEASER_SHAPE, frame_shape=TEASER_FRAMES)
+    paths = (T.REFERENCE_ROOT, T.TEASER_DIR, T.HOWTO_DIR)
+    T.REFERENCE_ROOT = root
+    T.TEASER_DIR = os.path.join(root, "notebooks", "icml_teaser_code")
+    T.HOWTO_DIR = os.path.join(root, "notebooks", "how_to", "data")
+    t_all = time.perf_counter()
+    out = {"phase": "teaser", "shape": list(TEASER_SHAPE),
+           "frames": list(TEASER_FRAMES), "protocols": {}}
+    try:
+        runs = [(name, TEASER_SCALE) for name in T.TEASERS]
+        runs.append(("convex_tomato", TEASER_TOMATO_SCALE))
+        for name, scale in runs:
+            t0 = time.perf_counter()
+            r = T.run_all(scale, names=[name], n_restarts=TEASER_RESTARTS,
+                          device=device)[name]
+            seconds = time.perf_counter() - t0
+            if not np.isfinite(r.extra["loss"]):
+                raise AssertionError(f"teaser {name}: loss {r.extra['loss']}")
+            if r.mask.shape != r.ref_mask.shape or r.mask.dtype != bool:
+                raise AssertionError(f"teaser {name}: mask {r.mask.shape} "
+                                     f"{r.mask.dtype}, reference "
+                                     f"{r.ref_mask.shape}")
+            res = {"steps_scale": scale, "seconds": seconds, "iou": r.iou,
+                   **{k: v for k, v in r.extra.items()
+                      if isinstance(v, (int, float, str))}}
+            print(json.dumps({"phase": "teaser_protocol", "name": name,
+                              **res}), flush=True)
+            out["protocols"][f"{name}@{scale}"] = res
+        tomato = out["protocols"][f"convex_tomato@{TEASER_TOMATO_SCALE}"]
+        if not tomato["iou"] > tomato["naive_iou"]:
+            raise AssertionError(f"the convex tomato does not beat its "
+                                 f"naive input: {tomato}")
+    finally:
+        T.REFERENCE_ROOT, T.TEASER_DIR, T.HOWTO_DIR = paths
+    out["minibatch_fit_card_vs_cpu"] = teaser_fit_card_vs_cpu(device)
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def icnn_inputs(width, layers, c, n, g, per_image, seed, device):
     """An ICNN, its stacked params (G images), their (G, P) rows, points
     (N, C) or (G, N, C), and an upstream grad (G, N)."""
@@ -3949,6 +4077,14 @@ def main() -> int:
     print(json.dumps(data), flush=True)
     mesh = mesh_path(dev, os.path.join("build", "smoke_mesh"))
     print(json.dumps(mesh), flush=True)
+    zero_counts()
+    teaser = teaser_path(dev, os.path.join("build", "smoke_teaser"))
+    teaser["kernel_launches"] = dict(zip(("K1/K2", "K1/K2 bf16", "K4", "K5"),
+                                         counts()[:4]))
+    if any(teaser["kernel_launches"].values()):
+        raise AssertionError("the teaser protocols launched a kernel: "
+                             f"{teaser['kernel_launches']}")
+    print(json.dumps(teaser), flush=True)
 
     replaces = "awesome_tpu/ops/pallas_flagship.py:236"
     kernels = [
