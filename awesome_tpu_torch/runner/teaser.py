@@ -38,7 +38,6 @@ with a file at every name a protocol opens.
 from __future__ import annotations
 
 import dataclasses
-import inspect
 import os
 from typing import Callable, Dict, Optional, Tuple
 
@@ -51,7 +50,11 @@ from awesome_tpu_torch.fit import optim
 from awesome_tpu_torch.fit.prior_fit import _all_finite
 from awesome_tpu_torch.nn.module import make_generator
 
-REFERENCE_ROOT = os.environ.get("AWESOME_REFERENCE_ROOT", "/root/reference")
+# the reference's tree, kept inside this repository unless
+# AWESOME_REFERENCE_ROOT names another
+REFERENCE_ROOT = os.environ.get("AWESOME_REFERENCE_ROOT", os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "reference"))
 TEASER_DIR = os.path.join(REFERENCE_ROOT, "notebooks", "icml_teaser_code")
 HOWTO_DIR = os.path.join(REFERENCE_ROOT, "notebooks", "how_to", "data")
 
@@ -839,19 +842,8 @@ TEASERS: Dict[str, Callable[..., TeaserResult]] = {
 }
 
 
-def run_all(steps_scale: float = 1.0, names=None, **kw
-            ) -> Dict[str, TeaserResult]:
-    """Every protocol in ``names`` (default all). Each gets the keyword
-    arguments of ``kw`` that its signature takes (``n_restarts`` only the
-    two restart ensembles, ``down_scale`` all but the temporal one); a
-    keyword that no protocol takes raises."""
-    taken = {name: set(inspect.signature(fn).parameters)
-             for name, fn in TEASERS.items()}
-    unknown = set(kw) - set().union(*taken.values())
-    if unknown:
-        raise TypeError(f"no teaser takes {sorted(unknown)}")
+def run_all(steps_scale: float = 1.0, names=None, **kw) -> Dict[str, TeaserResult]:
     out = {}
     for name in (names or TEASERS):
-        mine = {k: v for k, v in kw.items() if k in taken[name]}
-        out[name] = TEASERS[name](steps_scale=steps_scale, **mine)
+        out[name] = TEASERS[name](steps_scale=steps_scale, **kw)
     return out

@@ -8,7 +8,8 @@ shipped result masks; counterpart of ``scripts/run_teasers.py``.
 
 Reads the tree under ``AWESOME_REFERENCE_ROOT`` (the reference checkout,
 or a synthetic tree from ``python -m tools.teaser_tree``). Writes
-``DIR/results.json`` (merged into an existing one, so a partial
+``DIR/results.json`` (IoU, each mask's fill, seconds and the protocol's
+extras; merged into an existing one, so a partial
 ``--names`` run keeps the other protocols' numbers) plus the produced and
 reference mask PNGs. A protocol that raises is recorded as its error and
 the run goes on. Runs on the card unless ``--device cpu``.
@@ -54,7 +55,11 @@ def main(argv=None) -> None:
             print(f"{name}: FAILED {e!r}", flush=True)
             continue
         dt = time.time() - t0
+        # the share of pixels each mask holds: an all-True or all-False
+        # mask scores its reference's own fill or 0, whatever the fit
         results[name] = {"iou": round(r.iou, 4),
+                         "fill": round(float(np.mean(r.mask)), 4),
+                         "ref_fill": round(float(np.mean(r.ref_mask)), 4),
                          "seconds": round(dt, 1), **{
                              k: v for k, v in r.extra.items()
                              if isinstance(v, (int, float, list, str))

@@ -157,12 +157,11 @@ Phases, each printing its own line (any failure exits nonzero):
     principal angle) from float64 ``eigsh`` on the same stencil, the host
     proxy's ms, no fallback to the host;
 21. the paper table (``paper_table_path``): ``python -m
-    awesome_tpu_torch.scripts.run_paper_table`` in a subprocess on 3 cells
-    (CNNNet xy with the prior, CNNNet featxy without, FCNet featxy with;
-    Net feat dropped in PR 16 for the teaser phase) with the
-    'spectral_device' proxy, 12 images of 64x64, 400 epochs, the script's
-    global floors: exit 0, the table written, each cell's MIOUs and
-    seconds;
+    awesome_tpu_torch.scripts.run_paper_table`` in a subprocess on 4 cells
+    (CNNNet xy with the prior, CNNNet featxy without, Net feat and FCNet
+    featxy with) with the 'spectral_device' proxy, 12 images of 64x64, 320
+    epochs, the script's global floors: exit 0, the table written, each
+    cell's MIOUs and seconds;
 22. the data and utilities (``data_utils_path``): ``fit_prior_fused``
     with the bench model at 480x640, 200 steps timed by ``DeviceTimer``
     (one K1 launch per step, a falling loss, params bitwise equal to
@@ -196,7 +195,7 @@ Phases, each printing its own line (any failure exits nonzero):
 24. the teaser harness (``teaser_path``, ``runner/teaser.py``): a
     synthetic reference tree (``tools/teaser_tree.py``, 240x320 images,
     60x80 temporal masks) under ``build/smoke_teaser/``; the nine
-    protocols through ``run_all`` at steps scale 0.002 with 2 restarts,
+    protocols at steps scale 0.002, the restart ensembles with 2 restarts,
     then the convex tomato at 210 of its 700 steps, which must beat its
     naive input; each a finite loss, masks of the reference's shape, its seconds
     and IoU; no kernel launched (the protocols fit the plain models, as
@@ -2255,12 +2254,11 @@ IMAGE_PRETRAIN = 100
 IMAGE_REFIT = 100
 UNET_SHAPES = ((160, 224), (192, 256))
 UNET_EPOCHS = 5
-# the paper-table phase: 3 cells of the grid at the script's n and size,
-# the epochs cut from 800 (PR 16 dropped the 'net+feat+prior' cell, its
-# slowest at 43-50 s, to make room for the teaser phase)
+# the paper-table phase: 4 cells of the grid at the script's n and size,
+# the epochs cut from 800 (and from 400 to make room for the teaser phase)
 PAPER_TABLE_CELLS = ("cnnnet+xy+prior", "cnnnet+featxy+noprior",
-                     "fcnet+featxy+prior")
-PAPER_TABLE_EPOCHS = 400
+                     "net+feat+prior", "fcnet+featxy+prior")
+PAPER_TABLE_EPOCHS = 320
 
 
 def image_runner_config(folder: str, device, **kw):
@@ -2619,7 +2617,7 @@ def spectral_path(device) -> dict:
 
 def paper_table_path(root: str) -> dict:
     """``python -m awesome_tpu_torch.scripts.run_paper_table`` in a
-    subprocess on 3 cells of the grid (``PAPER_TABLE_CELLS``) with the
+    subprocess on 4 cells of the grid (``PAPER_TABLE_CELLS``) with the
     'spectral_device' proxy, the script's n = 12 and 64x64 and its global
     floors, the epochs cut to ``PAPER_TABLE_EPOCHS``: exit 0, the table
     written; each cell's seg and prior MIOU and seconds."""
@@ -3353,7 +3351,7 @@ def _mesh_checks(device, ranks, single, single_runner, sweep, dry, runs,
 
 
 # The teaser harness (runner/teaser.py) on a synthetic reference tree
-# (tools/teaser_tree.py): every protocol through run_all at a small step
+# (tools/teaser_tree.py): every protocol at a small step
 # scale (the path-connected ones keep their 100 prefit steps), then the
 # convex tomato at 210 of its 700 steps
 TEASER_SHAPE = (240, 320)
@@ -3417,8 +3415,8 @@ def teaser_fit_card_vs_cpu(device, steps: int = TEASER_FIT_STEPS) -> dict:
 def teaser_path(device, root: str) -> dict:
     """The nine teaser protocols on a synthetic reference tree
     (``TEASER_SHAPE`` images, ``TEASER_FRAMES`` temporal masks) written
-    under ``root``: ``run_all`` at ``TEASER_SCALE`` with
-    ``TEASER_RESTARTS`` restarts, then the convex tomato at
+    under ``root``: each at ``TEASER_SCALE``, the two restart ensembles
+    with ``TEASER_RESTARTS`` restarts, then the convex tomato at
     ``TEASER_TOMATO_SCALE`` of its 700 steps, which must beat its naive
     input (``tests/test_reference_images.py:34-36``); each a finite loss
     and masks of the reference's shape, its seconds and IoU printed; then
@@ -3442,8 +3440,9 @@ def teaser_path(device, root: str) -> dict:
         runs.append(("convex_tomato", TEASER_TOMATO_SCALE))
         for name, scale in runs:
             t0 = time.perf_counter()
-            r = T.run_all(scale, names=[name], n_restarts=TEASER_RESTARTS,
-                          device=device)[name]
+            kw = ({"n_restarts": TEASER_RESTARTS}
+                  if name in ("repeating", "connectedness_cat") else {})
+            r = T.TEASERS[name](steps_scale=scale, device=device, **kw)
             seconds = time.perf_counter() - t0
             if not np.isfinite(r.extra["loss"]):
                 raise AssertionError(f"teaser {name}: loss {r.extra['loss']}")

@@ -69,7 +69,7 @@ def run_banana(args, dev):
         real_nvp_path_connected_net,
     )
 
-    img, band = make_banana()
+    img, band = make_banana(args.size, args.size)
     h, w = band.shape
     unaries = (1.0 - band).astype(np.float32)  # fg = 0
 
@@ -103,6 +103,8 @@ def main(argv=None):
     p.add_argument("--synthetic", action="store_true",
                    help="use the synthetic banana even if the reference "
                         "cat image is present")
+    p.add_argument("--size", type=int, default=96,
+                   help="the synthetic scene's side in pixels")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 

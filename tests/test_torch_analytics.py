@@ -27,6 +27,7 @@ from awesome_tpu_torch.runner import multi as TM
 from awesome_tpu_torch.runner.config import AwesomeConfig
 from awesome_tpu_torch.runner.runner import AwesomeRunner
 from awesome_tpu_torch.serialization.jsonconv import port_path
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRID = {"optimizer_args.lr": [0.01, 0.02],

@@ -22,6 +22,7 @@ from awesome_tpu_torch.ops.mlp import FullyFusedConvexNextNet
 from awesome_tpu_torch.runner import config as TCfg
 from awesome_tpu_torch.runner import reference_import as TRef
 from awesome_tpu_torch.serialization import jsonconv as J
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -11,6 +11,7 @@ from awesome_tpu.core import transforms as JTr
 from awesome_tpu_torch.core import grids as TG
 from awesome_tpu_torch.core import transforms as TTr
 from awesome_tpu_torch.core import tree as TT
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

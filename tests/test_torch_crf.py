@@ -20,6 +20,7 @@ from awesome_tpu.ops import crf as JC
 from awesome_tpu.ops import permutohedral as JPH
 from awesome_tpu_torch.ops import crf as TC
 from awesome_tpu_torch.ops import permutohedral as TPH
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 PROB_ATOL = 1e-4

@@ -16,6 +16,7 @@ from awesome_tpu_torch.data import convexity as TC
 from awesome_tpu_torch.data import image_sample as TI
 from awesome_tpu_torch.data import split as TSP
 from awesome_tpu_torch.data import synthetic as TS
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FIELDS = ("image", "gt", "fg_mask", "bg_mask", "train_gt")
 

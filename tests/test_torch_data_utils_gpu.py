@@ -18,6 +18,7 @@ from awesome_tpu_torch.nn.icnn import ConvexNextNet
 from awesome_tpu_torch.nn.path_connected import real_nvp_path_connected_net
 from awesome_tpu_torch.ops.flagship import flagship_loss_grad_cuda
 from awesome_tpu_torch.utils.timer import DeviceTimer, Timer
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -19,6 +19,7 @@ from awesome_tpu_torch.data import fbms as TF
 from awesome_tpu_torch.data import synthetic as TS
 from awesome_tpu_torch.data import weak_label_processing as TW
 from tests.test_multi_object_joint import _write_two_object_sequence
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -35,6 +35,7 @@ from awesome_tpu_torch.fit.checkpoint import save_pytree
 from awesome_tpu_torch.nn import noisy_path_connected as TN
 from awesome_tpu_torch.runner import fbms_runner as TR
 from awesome_tpu_torch.runner.config import AwesomeConfig
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 2e-4

@@ -21,6 +21,7 @@ from awesome_tpu_torch.runner.fbms_runner import (
     FBMSExperimentConfig,
     FBMSRunner,
 )
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 HIST_RTOL = 2e-4
 COLD, WARM, FRAMES = 100, 40, 4

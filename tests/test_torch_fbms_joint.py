@@ -30,6 +30,8 @@ from awesome_tpu_torch.bridge import params_from_jax
 from awesome_tpu_torch.data.synthetic import write_synthetic_fbms_sequence
 from awesome_tpu_torch.runner import fbms_runner as TR
 
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 SMALL = dict(prior_hidden_units=8, prior_flows=2, convex_hidden_units=12,
              convex_hidden_layers=1)
 STEP_RTOL, EPOCH_RTOL, METRIC_ATOL = 1e-4, 1e-3, 1e-3

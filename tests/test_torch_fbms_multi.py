@@ -32,6 +32,7 @@ from awesome_tpu_torch.core import tree as TT
 from awesome_tpu_torch.data.synthetic import write_synthetic_fbms_sequence
 from awesome_tpu_torch.runner import fbms_runner as TR
 from tests.test_multi_object_joint import _write_two_object_sequence
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SMALL = dict(prior_hidden_units=8, prior_flows=2, convex_hidden_units=12,
              convex_hidden_layers=1)

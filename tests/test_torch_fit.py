@@ -30,6 +30,7 @@ from awesome_tpu_torch.measures import metrics as TM
 from awesome_tpu_torch.nn.path_connected import (
     real_nvp_path_connected_net as t_factory,
 )
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 HIST_RTOL, P_RTOL, P_ATOL = 2e-4, 2e-3, 2e-6

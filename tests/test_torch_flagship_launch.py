@@ -5,6 +5,7 @@ resident block per SM."""
 import pytest
 
 from awesome_tpu_torch.ops import flagship as TP
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SMS, PER_SM = 132, 1
 # chunks of 64 points per image at 480x640 and at 64x64

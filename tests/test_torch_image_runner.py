@@ -29,6 +29,7 @@ from awesome_tpu_torch.bridge import params_from_jax, params_to_numpy
 from awesome_tpu_torch.core import tree as T
 from awesome_tpu_torch.runner.config import AwesomeConfig
 from awesome_tpu_torch.runner.runner import AwesomeRunner
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HIST_RTOL = 2e-4

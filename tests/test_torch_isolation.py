@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import awesome_tpu_torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 PKG = pathlib.Path(awesome_tpu_torch.__file__).resolve().parent
 MODULES = sorted(

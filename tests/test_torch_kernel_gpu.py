@@ -13,6 +13,7 @@ from awesome_tpu_torch.nn.path_connected import (
     real_nvp_path_connected_net as t_factory,
 )
 from awesome_tpu_torch.ops import flagship as TP
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 5e-4, 1e-6
 

@@ -10,6 +10,7 @@ from awesome_tpu.measures import losses as JL
 from awesome_tpu.measures import metrics as JM
 from awesome_tpu_torch.measures import losses as TL
 from awesome_tpu_torch.measures import metrics as TM
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _u(shape, seed, lo=0.0, hi=1.0):

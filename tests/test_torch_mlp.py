@@ -23,6 +23,7 @@ from awesome_tpu.ops import pallas_mlp as JM
 from awesome_tpu_torch.bridge import params_from_jax, params_to_numpy
 from awesome_tpu_torch.nn.icnn import ConvexNextNet
 from awesome_tpu_torch.ops import mlp as M
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 ATOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 5e-4, 1e-6

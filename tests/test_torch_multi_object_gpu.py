@@ -28,6 +28,7 @@ from awesome_tpu_torch.nn.path_connected import (
 from awesome_tpu_torch.nn.seg import UNet
 from awesome_tpu_torch.nn.wrapper import WrapperModule
 from awesome_tpu_torch.ops import flagship as TP
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 HIST_RTOL = 2e-4  # the fit tolerance of tests/test_fused_fit.py
 # tests/test_torch_kernel_gpu.py's tolerances of the kernel against its

@@ -9,6 +9,7 @@ import torch
 from awesome_tpu.fit import optim as JO
 from awesome_tpu_torch.core import tree as TT
 from awesome_tpu_torch.fit import optim as TO
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 STEPS = 50
 

@@ -18,6 +18,7 @@ from awesome_tpu_torch.ops import spectral as S
 from awesome_tpu_torch.runner import sss_extractor as X
 from awesome_tpu_torch.runner.config import AwesomeConfig
 from awesome_tpu_torch.runner.runner import AwesomeRunner
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

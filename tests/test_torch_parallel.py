@@ -13,6 +13,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 WORLD = 4

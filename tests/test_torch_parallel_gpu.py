@@ -11,6 +11,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SHAPE = (64, 64)
 STEPS = 50

@@ -29,6 +29,7 @@ from awesome_tpu_torch.nn import icnn as TI
 from awesome_tpu_torch.nn import seg as TS
 from awesome_tpu_torch.nn import wrapper as TW
 from awesome_tpu_torch.ops import mlp as TM
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 B, N = 2, 40

@@ -41,6 +41,7 @@ from awesome_tpu_torch.nn import icnn as TI
 from awesome_tpu_torch.nn import linear as TL
 from awesome_tpu_torch.nn import priors_extra as TP
 from awesome_tpu_torch.ops import mlp as TM
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 APPLY_RTOL, APPLY_ATOL = 1e-5, 1e-6

@@ -14,6 +14,7 @@ import torch
 import chip_smoke
 from awesome_tpu_torch.ops import crf as TC
 from awesome_tpu_torch.ops import permutohedral as PH
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

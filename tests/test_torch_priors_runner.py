@@ -29,6 +29,7 @@ from awesome_tpu_torch.ops.mlp import FullyFusedConvexNextNet
 from awesome_tpu_torch.runner import functions as TFn
 from awesome_tpu_torch.runner.config import AwesomeConfig
 from awesome_tpu_torch.runner.runner import AwesomeRunner
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 HIST_RTOL = 2e-4
 METRIC_ATOL = 1e-3

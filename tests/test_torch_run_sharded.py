@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import numpy as np
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -27,6 +27,7 @@ from awesome_tpu_torch.core import tree as TT
 from awesome_tpu_torch.nn.icnn import ConvexNextNet
 from awesome_tpu_torch.runner.config import AwesomeConfig
 from awesome_tpu_torch.runner.runner import AwesomeRunner, treedef_str
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HIST_RTOL = 2e-4

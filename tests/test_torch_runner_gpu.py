@@ -16,6 +16,7 @@ from awesome_tpu_torch.nn.icnn import ConvexNextNet
 from awesome_tpu_torch.ops import mlp
 from awesome_tpu_torch.runner.config import AwesomeConfig
 from awesome_tpu_torch.runner.runner import AwesomeRunner
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 HIST_RTOL = 2e-4
 

@@ -26,6 +26,7 @@ from awesome_tpu_torch.runner.config import AwesomeConfig
 from awesome_tpu_torch.scripts import build_all_configs as TB
 from awesome_tpu_torch.scripts import run_fbms_table as TT
 from awesome_tpu_torch.scripts import run_noise_curve as TN
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-12

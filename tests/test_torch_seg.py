@@ -25,6 +25,7 @@ from awesome_tpu_torch.core import transforms as TTr
 from awesome_tpu_torch.nn import adapters as TA
 from awesome_tpu_torch.nn import conv as TC
 from awesome_tpu_torch.nn import seg as TS
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

@@ -15,7 +15,11 @@ its two scripts and the four how-to examples, against the JAX package's
   tiny step scale; the flow-identity prefits (100 steps in the protocols,
   whatever the scale) are cut to ``PREFIT_STEPS`` to keep the file's
   budget.
+
+``tests/teaser_jax_vs_port.py`` runs the star and lattice protocols of
+both packages from one init and JAX's draws at sizes beyond this budget.
 """
+import functools
 import importlib.util
 import json
 import os
@@ -35,13 +39,16 @@ from awesome_tpu_torch.fit import prior_fit as TF
 from awesome_tpu_torch.nn import convex_diffeo as TCD
 from awesome_tpu_torch.nn import icnn as TI
 from awesome_tpu_torch.nn import priors_extra as TP
+from awesome_tpu_torch.nn.module import make_generator
 from awesome_tpu_torch.runner import teaser as TT
 from tools.teaser_tree import write_tree
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 HIST_RTOL = 2e-4
 PARAM_RTOL, PARAM_ATOL = 5e-4, 1e-6
 MASK_PIXELS = 2
+RESTARTS = ("repeating", "connectedness_cat")  # the restart ensembles
 TINY = 0.0005  # steps_scale: 1-8 steps per fit
 PREFIT_STEPS = 5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,16 +81,6 @@ def _assert_params_close(port, jax_tree):
         np.testing.assert_allclose(got[k].numpy(), v.numpy(),
                                    rtol=PARAM_RTOL, atol=PARAM_ATOL,
                                    err_msg=k)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's small CPU fits are op-bound: more threads only add
-    overhead."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -186,16 +183,24 @@ def test_entry_points_default_to_the_card(tree):
 N0, N1, N_SAMPLE, STEPS = 30, 25, 6, 15
 
 
-@jax.jit
-def _jax_draws(base):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def _jax_draws(base, steps, n_sample, n0, n1):
     """``minibatch_fit``'s draws from its base key, replayed: ``:216-218``
     and ``:248``."""
     def draw(k):
         k0, k1 = jax.random.split(k)
-        return (jax.random.randint(k0, (N_SAMPLE,), 0, N0),
-                jax.random.randint(k1, (N_SAMPLE,), 0, N1))
+        return (jax.random.randint(k0, (n_sample,), 0, n0),
+                jax.random.randint(k1, (n_sample,), 0, n1))
 
-    return jax.vmap(draw)(jax.random.split(base, STEPS))
+    return jax.vmap(draw)(jax.random.split(base, steps))
+
+
+def _draws_of_jax(gen, steps, n_sample, n0, n1):
+    """The port's ``_draw_indices`` made to return JAX's draws: the
+    generator is seeded as JAX's base key is (``:194``)."""
+    return tuple(torch.tensor(np.asarray(d), dtype=torch.int64)
+                 for d in _jax_draws(jax.random.PRNGKey(gen.initial_seed()),
+                                     steps, n_sample, n0, n1))
 
 
 def _case(name):
@@ -233,10 +238,9 @@ def test_minibatch_fit_matches_jax_with_its_draws(name, monkeypatch):
     j_fit, j_hist = JT.minibatch_fit(
         jm, jax.tree_util.tree_map(jnp.asarray, params_to_numpy(p0)),
         jnp.asarray(pts0), jnp.asarray(pts1), **kw)
-    base = jax.random.PRNGKey(
+    gen = torch.Generator().manual_seed(
         kw["seed"] + (1 << 20 if kw.get("params_are_phase2") else 0))
-    draws = tuple(torch.tensor(np.asarray(d), dtype=torch.int64)
-                  for d in _jax_draws(base))
+    draws = _draws_of_jax(gen, STEPS, N_SAMPLE, N0, N1)
     monkeypatch.setattr(TT, "_draw_indices", lambda *a: draws)
     t_fit, t_hist = TT.minibatch_fit(tm, p0, torch.as_tensor(pts0),
                                      torch.as_tensor(pts1), **kw)
@@ -277,24 +281,30 @@ def test_draw_indices_on_the_generator_device():
 # ------------------------------------------- protocols against JAX's
 
 
-def _bridged_init(monkeypatch):
-    """The port's ConvexNextNet starts from the JAX init of the same
-    widths and seed 0 (both protocols use seed 0)."""
+def _bridge_init(monkeypatch, port_cls, jax_model):
+    """The port's ``port_cls`` starts from JAX's init of the same widths
+    (``jax_model(port_model)``) and seed: ``model.init(make_generator(s))``
+    takes ``PRNGKey(s)``'s params."""
     def init(self, generator=None):
-        j = JI.ConvexNextNet(n_hidden=self.n_hidden,
-                             in_features=self.in_features,
-                             n_hidden_layers=self.n_hidden_layers)
-        return params_from_jax(jax.device_get(j.init(jax.random.PRNGKey(0))),
+        key = jax.random.PRNGKey(make_generator(generator).initial_seed())
+        return params_from_jax(jax.device_get(jax_model(self).init(key)),
                                device=self.device)
 
-    monkeypatch.setattr(TI.ConvexNextNet, "init", init)
+    monkeypatch.setattr(port_cls, "init", init)
 
 
-@pytest.mark.parametrize("name,scale", [("howto_convexity", 0.05),
-                                        ("convex_depth", 0.05)])
+CONVEX_NEXT = (TI.ConvexNextNet, lambda m: JI.ConvexNextNet(
+    n_hidden=m.n_hidden, in_features=m.in_features,
+    n_hidden_layers=m.n_hidden_layers))
+
+
+@pytest.mark.parametrize("name,scale", [("howto_convexity", 0.03),
+                                        ("convex_depth", 0.02)])
 def test_protocol_matches_jax(tree, name, scale, monkeypatch):
+    """The JAX protocol and the port's from one init: the final loss and
+    the masks (at most ``MASK_PIXELS`` apart at the threshold)."""
     want = JT.TEASERS[name](steps_scale=scale)
-    _bridged_init(monkeypatch)
+    _bridge_init(monkeypatch, *CONVEX_NEXT)
     got = TT.TEASERS[name](steps_scale=scale, device=CPU)
     np.testing.assert_allclose(got.extra["loss"], want.extra["loss"],
                                rtol=HIST_RTOL)
@@ -313,7 +323,9 @@ def test_protocol_matches_jax(tree, name, scale, monkeypatch):
 
 @pytest.fixture(scope="module")
 def port_runs(tree):
-    return TT.run_all(steps_scale=TINY, n_restarts=2, device=CPU)
+    return {name: fn(steps_scale=TINY, device=CPU,
+                     **({"n_restarts": 2} if name in RESTARTS else {}))
+            for name, fn in TT.TEASERS.items()}
 
 
 @pytest.mark.parametrize("name", list(TT.TEASERS))
@@ -324,11 +336,6 @@ def test_protocol_runs_on_the_port(port_runs, name):
     assert r.mask.dtype == bool and r.mask.shape == r.ref_mask.shape
     assert r.mask.shape[-2:] in ((24, 32), (12, 16), (8, 12))
     assert 0.0 <= r.iou <= 1.0
-
-
-def test_run_all_routes_keywords(tree):
-    with pytest.raises(TypeError, match="n_restart"):
-        TT.run_all(names=["star"], n_restart=2, device=CPU)
 
 
 # ------------------------------------------- the scripts, in process
@@ -353,6 +360,9 @@ def test_run_teasers_script(tree, tmp_path, monkeypatch):
     assert sorted(res) == ["convex_tomato", "star", "temporal_connectedness"]
     assert "synthetic failure" in res["star"]["error"]
     assert len(res["temporal_connectedness"]["per_frame_iou"]) == 8
+    for name in ("convex_tomato", "temporal_connectedness"):
+        assert 0.0 <= res[name]["fill"] <= 1.0
+        assert 0.0 < res[name]["ref_fill"] < 1.0
     for name in ("convex_tomato", "temporal_connectedness_0",
                  "temporal_connectedness_7"):
         for sfx in ("ours", "ref"):
@@ -404,7 +414,7 @@ def test_example_multi_object(capsys):
 def test_example_path_connectedness(tree, tmp_path, capsys, synthetic):
     _example("torch_howto_path_connectedness").main(
         ["--epochs", "5", "--out", str(tmp_path), "--device", CPU]
-        + (["--synthetic"] if synthetic else []))
+        + (["--synthetic", "--size", "32"] if synthetic else []))
     out = capsys.readouterr().out
     assert "deformation inverse max err" in out
     assert ("fit IoU" if synthetic else "IoU vs reference shipped") in out

@@ -17,6 +17,7 @@ import chip_smoke
 from awesome_tpu_torch.nn.priors_extra import RotationSymmetricNet
 from awesome_tpu_torch.runner import teaser as TT
 from tools.teaser_tree import write_tree
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

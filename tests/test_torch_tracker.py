@@ -11,6 +11,7 @@ import torch
 
 from awesome_tpu.fit import tracker as JTk
 from awesome_tpu_torch.fit import tracker as TTk
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _feed(tracker, values, value_type):

@@ -35,6 +35,7 @@ from awesome_tpu_torch.nn import wrapper as TW
 from awesome_tpu_torch.nn.path_connected import (
     real_nvp_path_connected_net as t_factory,
 )
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 H = W = 32

@@ -39,6 +39,7 @@ from awesome_tpu_torch.utils import logging as TLOG
 from awesome_tpu_torch.utils import profiling as TPROF
 from awesome_tpu_torch.utils import shims as TSH
 from awesome_tpu_torch.utils.timer import DeviceTimer, Timer
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 ATOL = 1e-6

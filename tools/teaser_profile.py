@@ -82,7 +82,8 @@ def main(argv=None) -> None:
                 "seconds": full[name]["seconds"],
                 "ms_per_step": 1e3 * full[name]["seconds"] / n,
                 **{k: full[name][k] for k in (
-                    "iou", "naive_iou", "input_iou", "naive_vs_ours_iou",
+                    "iou", "fill", "ref_fill", "naive_iou", "input_iou",
+                    "naive_vs_ours_iou",
                     "phase_aligned_iou", "loss") if k in full[name]}}
         if not args.skip_profile:
             out.update(profile(T, name, args))
@@ -97,8 +98,9 @@ def profile(T, name: str, args) -> dict:
     import chip_smoke
 
     def run():
-        T.run_all(args.steps_scale, names=[name],
-                  n_restarts=args.n_restarts, device="cuda")
+        kw = ({"n_restarts": args.n_restarts}
+              if name in ("repeating", "connectedness_cat") else {})
+        T.TEASERS[name](steps_scale=args.steps_scale, device="cuda", **kw)
         torch.cuda.synchronize()
 
     run()

@@ -126,8 +126,12 @@ def butterfly(h: int, w: int, rng) -> Tuple[np.ndarray, np.ndarray]:
 
 def lattice(h: int, w: int, rng) -> Tuple[np.ndarray, np.ndarray]:
     """A dot lattice (holes white) and its naive mask: a fifth of the dots
-    missing and some speckle."""
-    p = max(int(round(min(h, w) / 12)), 4)
+    missing and some speckle. The period is a quarter of the short side,
+    within reach of ``PeriodicNet``'s sin features (``sin(10 pi W1 x)``,
+    W1 drawn within +-1/sqrt(2), so periods of ~0.28 in centred
+    coordinates at init): a lattice of a twelfth of the short side is
+    not, and its fits stay at the constant predictor."""
+    p = max(int(round(min(h, w) / 4)), 4)
     yy, xx = _grid(h, w)
     cell_y, cell_x = np.floor(yy / p), np.floor(xx / p)
     ry, rx = yy - (cell_y + 0.5) * p, xx - (cell_x + 0.5) * p
