@@ -36,14 +36,20 @@ def nvcc() -> str:
                        "the port's kernels")
 
 
+def library_path(source: str, extra_flags: Tuple[str, ...] = ()) -> Path:
+    """Where the build of ``csrc/<source>`` with these flags goes."""
+    src = CSRC / source
+    digest = hashlib.sha1(src.read_bytes())
+    digest.update("\0".join(NVCC_FLAGS + tuple(extra_flags)).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
+
+
 def build_library(source: str, extra_flags: Tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/<source>`` into a shared library and return its path
     (an existing build of the same source and flags is reused)."""
     src = CSRC / source
     flags = NVCC_FLAGS + tuple(extra_flags)
-    digest = hashlib.sha1(src.read_bytes())
-    digest.update("\0".join(flags).encode())
-    out = BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
+    out = library_path(source, extra_flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -44,6 +44,35 @@ def _flagship(h: int, w: int, device):
         prior_arg_mode="param_clean_grid", seg_stateful=True)
 
 
+def joint_step_inputs(rows: int, device, h: int = 16, w: int = 16):
+    """The dry run's joint step for a mesh of ``rows`` data rows: the
+    flagship wrapper on ``device``, its config, a train state and a batch
+    of 2 images a row (all made from fixed seeds)."""
+    from awesome_tpu_torch.core import grids as G
+    from awesome_tpu_torch.fit.trainer import (
+        JointTrainConfig,
+        joint_train_init,
+    )
+
+    batch_size = rows * 2
+    wrapper = _flagship(h, w, device)
+    cfg = JointTrainConfig(lr=1e-4, prior_lr=1e-3)
+    state = joint_train_init(wrapper, torch.Generator().manual_seed(0),
+                             batch_size * 2, cfg)
+    gen = torch.Generator().manual_seed(1)
+    batch = {
+        "image": torch.rand((batch_size, h, w, 3), generator=gen
+                            ).to(device),
+        "features": torch.rand((batch_size, h, w, 1), generator=gen
+                               ).to(device),
+        "grid": G.flatten_grid(G.pixel_grid((h, w), device=device)),
+        "target": (torch.rand((batch_size, h, w, 1), generator=gen)
+                   > 0.5).to(torch.float32).to(device),
+        "index": torch.arange(batch_size, device=device),
+    }
+    return wrapper, cfg, state, batch
+
+
 def _same_on_every_rank(mesh, value: float, what: str) -> None:
     values = mesh.gather_to_root(value)
     if values is not None and len(set(values)) != 1:
@@ -69,13 +98,8 @@ def dryrun_rank(n: int) -> Dict:
     losses, the mesh's backend and this rank's device."""
     import shutil
 
-    from awesome_tpu_torch.core import grids as G
     from awesome_tpu_torch.data.synthetic import write_synthetic_fbms_sequence
-    from awesome_tpu_torch.fit.trainer import (
-        JointTrainConfig,
-        joint_train_init,
-        make_joint_train_step,
-    )
+    from awesome_tpu_torch.fit.trainer import make_joint_train_step
     from awesome_tpu_torch.parallel.mesh import make_mesh
     from awesome_tpu_torch.runner.config import AwesomeConfig
     from awesome_tpu_torch.runner.fbms_runner import (
@@ -90,21 +114,7 @@ def dryrun_rank(n: int) -> Dict:
     out = {"backend": mesh.backend, "device": str(dev)}
 
     # one full joint step: images over 'data', grid points over 'grid'
-    h = w = 16
-    batch_size = shape[0] * 2  # 2 images per data row
-    wrapper = _flagship(h, w, dev)
-    cfg = JointTrainConfig(lr=1e-4, prior_lr=1e-3)
-    state = joint_train_init(wrapper, torch.Generator().manual_seed(0),
-                             batch_size * 2, cfg)
-    gen = torch.Generator().manual_seed(1)
-    batch = {
-        "image": torch.rand((batch_size, h, w, 3), generator=gen).to(dev),
-        "features": torch.rand((batch_size, h, w, 1), generator=gen).to(dev),
-        "grid": G.flatten_grid(G.pixel_grid((h, w), device=dev)),
-        "target": (torch.rand((batch_size, h, w, 1), generator=gen)
-                   > 0.5).to(torch.float32).to(dev),
-        "index": torch.arange(batch_size, device=dev),
-    }
+    wrapper, cfg, state, batch = joint_step_inputs(shape[0], dev)
     step = make_joint_train_step(wrapper, cfg, mesh=mesh)
     _, metrics = step(state, batch)
     out["step_loss"] = float(metrics["loss"])

@@ -3,8 +3,9 @@
 :func:`spawn` starts ``world`` processes with ``torch.multiprocessing``
 (the spawn method), joins them into one process group and runs ``fn(*args)``
 in each; what each rank returns comes back to the caller in rank order.
-The ranks take the cards round robin (``cuda:{rank % device_count}``) or
-the CPU; the backend follows :func:`awesome_tpu_torch.parallel.mesh.
+The ranks take the cards round robin (``cuda:{rank % device_count}``;
+under ``torchrun`` ``LOCAL_RANK`` takes the place of the rank) or the
+CPU; the backend follows :func:`awesome_tpu_torch.parallel.mesh.
 backend_for` (NCCL with a card per rank, gloo otherwise) and is never
 swapped for another when a collective fails. ``fn`` must be importable by
 the children (a module-level function).
@@ -28,18 +29,26 @@ from awesome_tpu_torch.parallel.mesh import (
 
 
 def init_rank(rank: int, world: int, init_method: str, device: str,
-              threads: Optional[int] = None,
-              timeout_s: float = 1800.0) -> torch.device:
+              threads: Optional[int] = None, timeout_s: float = 1800.0,
+              local_rank: Optional[int] = None,
+              local_world: Optional[int] = None) -> torch.device:
     """Join the process group as ``rank`` of ``world`` and return this
-    rank's device (made current on CUDA). ``threads`` sets
-    ``torch.set_num_threads`` (default: the cores shared out among the
-    ranks)."""
-    torch.set_num_threads(threads or max(1, (os.cpu_count() or 1) // world))
-    dev = rank_device(torch.device(device).type, rank)
+    rank's device. On CUDA the rank's card is made current before anything
+    touches CUDA, and NCCL starts its communicator on that card at once.
+    ``local_rank`` and ``local_world``: the rank's index among the ranks
+    of its host and their number (torchrun's ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE``; by default one host runs the whole world).
+    ``threads`` sets ``torch.set_num_threads`` (default: the cores shared
+    out among the host's ranks)."""
+    local_rank = rank if local_rank is None else local_rank
+    local_world = world if local_world is None else local_world
+    torch.set_num_threads(threads or max(1, (os.cpu_count() or 1)
+                                         // local_world))
+    dev = rank_device(torch.device(device).type, local_rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     set_rank_device(dev)
-    backend = backend_for(dev, world)
+    backend = backend_for(dev, local_world)
     kwargs = {}
     if backend == "nccl":
         kwargs["device_id"] = dev

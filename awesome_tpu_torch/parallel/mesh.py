@@ -48,27 +48,29 @@ def set_rank_device(device) -> None:
     _RANK_DEVICE = torch.device(device)
 
 
-def backend_for(device: torch.device, world: int) -> str:
+def backend_for(device: torch.device, ranks: int) -> str:
     """The backend rule: ``"nccl"`` when every rank has a card of its own
-    (``world`` ranks on as many cards), ``"gloo"`` when ranks share a card
-    or run on the CPU."""
+    (``ranks``, the ranks on this host, on at least as many cards),
+    ``"gloo"`` when ranks share a card or run on the CPU."""
     device = torch.device(device)
     if device.type == "cpu":
         return "gloo"
     if device.type != "cuda":
         raise ValueError(f"no mesh backend for device {device}")
-    return "nccl" if world <= torch.cuda.device_count() else "gloo"
+    return "nccl" if ranks <= torch.cuda.device_count() else "gloo"
 
 
-def rank_device(kind: str, rank: int) -> torch.device:
-    """Rank ``rank``'s device: the CPU, or the cards round robin."""
+def rank_device(kind: str, local_rank: int) -> torch.device:
+    """The device of the rank with index ``local_rank`` among the ranks of
+    its host (torchrun's ``LOCAL_RANK``; the rank itself where one host
+    runs them all): the CPU, or the cards round robin."""
     if kind == "cpu":
         return torch.device("cpu")
     n = torch.cuda.device_count()
     if n == 0:
         raise RuntimeError("a CUDA mesh needs a card; pass device='cpu' to "
                            "run the ranks on the CPU")
-    return torch.device("cuda", rank % n)
+    return torch.device("cuda", local_rank % n)
 
 
 def sum_trees(total: Callable, *trees) -> tuple:
@@ -167,18 +169,16 @@ class Mesh:
                ) -> torch.Tensor:
         """Concatenate the ranks' blocks of ``t`` along ``dim`` in the
         order of their ``axis`` coordinates (exact copies; every rank gets
-        the whole). On gloo a CUDA tensor goes through the CPU."""
+        the whole, on ``t``'s device). The blocks cross on the CPU under
+        gloo and on the mesh's card under NCCL."""
         size = self._axis_size(axis)
         if size == 1:
             return t
-        src = t.detach().contiguous()
-        host = self.backend == "gloo" and src.device.type == "cuda"
-        if host:
-            src = src.cpu()
+        comm = torch.device("cpu") if self.backend == "gloo" else self.device
+        src = t.detach().to(comm).contiguous()
         parts = [torch.empty_like(src) for _ in range(size)]
         dist.all_gather(parts, src, group=self._group(axis))
-        out = torch.cat(parts, dim=dim)
-        return out.to(t.device) if host else out
+        return torch.cat(parts, dim=dim).to(t.device)
 
     def gather_tree(self, axis: str, tree: Params, dim: int = 0) -> Params:
         """:meth:`gather` of every leaf."""

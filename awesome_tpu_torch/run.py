@@ -223,10 +223,23 @@ def main(cfg) -> Optional[str]:
     return out
 
 
-def join_torchrun_world(cfg) -> None:
+def device_arg(argv: Optional[List[str]] = None) -> str:
+    """The kind of device a run asks for on its command line (``--device``;
+    the card by default), read before the config is."""
+    import argparse
+
+    from awesome_tpu_torch.runner.config import translate_device
+
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--device", type=str, default="cuda")
+    return translate_device(p.parse_known_args(argv)[0].device)
+
+
+def join_torchrun_world(device: str) -> None:
     """Under ``torchrun`` (its ``WORLD_SIZE`` > 1): join its process group
-    on this rank's card (or the CPU) and take rank 0's run timestamp, so
-    every rank names the same run folder."""
+    with this rank on the card ``LOCAL_RANK`` of its host (or on the CPU).
+    Called before the config is read, so that every tensor the config
+    builds lands on that card."""
     import torch.distributed as dist
 
     from awesome_tpu_torch.parallel.launch import init_rank
@@ -234,14 +247,27 @@ def join_torchrun_world(cfg) -> None:
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1 or dist.is_initialized():
         return
-    init_rank(int(os.environ["RANK"]), world, "env://", cfg.device)
-    stamp = [cfg.timestamp]
-    dist.broadcast_object_list(stamp, src=0)
-    cfg.timestamp = stamp[0]
+    init_rank(int(os.environ["RANK"]), world, "env://", device,
+              local_rank=int(os.environ["LOCAL_RANK"]),
+              local_world=int(os.environ["LOCAL_WORLD_SIZE"]))
+
+
+def share_timestamp(cfg) -> None:
+    """In a process group: rank 0's run timestamp on every rank, so that
+    they all name the same run folder."""
+    from awesome_tpu_torch.parallel.launch import in_process_group
+
+    if in_process_group():
+        import torch.distributed as dist
+
+        stamp = [cfg.timestamp]
+        dist.broadcast_object_list(stamp, src=0)
+        cfg.timestamp = stamp[0]
 
 
 if __name__ == "__main__":
     config_logging()
+    join_torchrun_world(device_arg())
     config = get_config()
-    join_torchrun_world(config)
+    share_timestamp(config)
     main(config)

@@ -15,7 +15,8 @@ worker (default)::
         --num-shards 4 --shard-id 1 --runs-path runs/sweep
 
   runs this shard's configs in this process (on ``cuda:{shard %
-  device_count}``, or the CPU with ``--device cpu``), writes each run
+  device_count}``, whatever device a config names, or the CPU with
+  ``--device cpu``), writes each run
   under ``--runs-path`` and the shard manifest ``shard_1.json``.
 
 local fan-out::
@@ -23,8 +24,9 @@ local fan-out::
     python -m awesome_tpu_torch.scripts.run_sharded --config-dir CFGS \\
         --num-shards 2 --spawn --runs-path runs/sweep
 
-  starts ``--num-shards`` worker processes on disjoint shards (CUDA
-  processes share a card), waits, then aggregates.
+  starts ``--num-shards`` worker processes on disjoint shards (each on
+  its shard's card; they share one only when there are more shards than
+  cards), waits, then aggregates.
 
 multi-host (one worker per host)::
 
@@ -91,8 +93,7 @@ def run_worker(args) -> dict:
     for _, argv in mine:
         cfg_path = argv[argv.index("--config-path") + 1]
         try:
-            cfg = load_config_file(
-                cfg_path, "cpu" if args.device == "cpu" else None)
+            cfg = load_config_file(cfg_path, device)
             cfg.runs_path = args.runs_path
             run_mod.main(cfg)
             manifest["jobs"].append(cfg_path)

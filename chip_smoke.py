@@ -177,8 +177,9 @@ Phases, each printing its own line (any failure exits nonzero):
     trapped by ``debug_guard``; the ``PhaseTimer`` report (run folders in
     ``build/smoke_data/``); the checkpoint saves carry the in-memory
     samples as one binary ``samples.npz`` each;
-23. the device mesh (``mesh_path``): two ranks on the card over gloo
-    (``parallel/launch.py``): the batched fused fit (bench model, 4
+23. the device mesh (``mesh_path``): two ranks (``parallel/launch.py``)
+    on the backend rule's choice, gloo on the one card (NCCL, a card
+    each, on a machine with more): the batched fused fit (bench model, 4
     images at 480x640, the gate, 200 steps) on meshes (2, 1) and (1, 2)
     against the single-process fit (on each, one step at the inits and
     at the fitted params with each rank's K2 on its block of the images
@@ -189,9 +190,9 @@ Phases, each printing its own line (any failure exits nonzero):
     ``all_reduce``'s share; the convexity runner on [2, 1] and [1, 2], 40
     epochs, loss histories within rtol 2e-3, atol 2e-4 of one process,
     one K4 and one K5 launch per rank per epoch; ``run_sharded --spawn``
-    with two workers on the card; ``dryrun_multichip(2)``; every rank's
-    backend (gloo) and device (a card) as its mesh holds them (run
-    folders in ``build/smoke_mesh/``);
+    with two workers; ``dryrun_multichip(2)``; every rank's backend and
+    card as its mesh holds them, by the rule (run folders in
+    ``build/smoke_mesh/``);
 24. the teaser harness (``teaser_path``, ``runner/teaser.py``): a
     synthetic reference tree (``tools/teaser_tree.py``, 240x320 images,
     60x80 temporal masks) under ``build/smoke_teaser/``; the nine
@@ -3059,12 +3060,32 @@ def _where(mesh) -> dict:
 
 
 def _check_where(where: list, what: str) -> list:
-    """Every rank on gloo and on a card (two ranks share the one card)."""
-    if any(w["backend"] != "gloo" or not w["device"].startswith("cuda")
-           for w in where):
-        raise AssertionError(f"{what}: ranks on {where}, not gloo on the "
-                             "card")
+    """The backend rule (``parallel.mesh.backend_for``) on this machine:
+    every rank on a card and on the backend the rule names for their
+    number, NCCL with a card of its own per rank, gloo where they share
+    cards (the one-card machine)."""
+    import torch
+
+    from awesome_tpu_torch.parallel.mesh import backend_for
+
+    backend = backend_for(torch.device("cuda"), len(where))
+    cards = [w["device"] for w in where]
+    if any(w["backend"] != backend or not w["device"].startswith("cuda:")
+           for w in where) or (backend == "nccl"
+                               and len(set(cards)) != len(cards)):
+        how = "on a card each" if backend == "nccl" else "on the cards"
+        raise AssertionError(f"{what}: ranks on {where}, not {backend} "
+                             f"{how}")
     return where
+
+
+def _collectives(where: list) -> str:
+    """Which case of the backend rule a mesh ran (:func:`_check_where`)."""
+    cards = len({w["device"] for w in where})
+    if where[0]["backend"] == "nccl":
+        return f"NCCL between {len(where)} processes on {cards} cards"
+    return (f"gloo between {len(where)} processes on {cards} "
+            f"card{'s' if cards > 1 else ''}, not NCCL across cards")
 
 
 def mesh_rank(root: str, go: str) -> dict:
@@ -3105,14 +3126,14 @@ def mesh_rank(root: str, go: str) -> dict:
     return out
 
 
-def _write_sharded_configs(folder: str, device) -> str:
-    """Three tiny convexity configs for ``run_sharded``."""
+def _write_sharded_configs(folder: str, device, n: int = 3) -> str:
+    """``n`` tiny convexity configs for ``run_sharded``."""
     from awesome_tpu_torch.runner.config import AwesomeConfig
     from awesome_tpu_torch.serialization.jsonconv import save_yaml
 
     cfg_dir = os.path.join(folder, "cfgs")
     os.makedirs(cfg_dir, exist_ok=True)
-    for i in range(3):
+    for i in range(n):
         save_yaml(AwesomeConfig(
             name_experiment=f"smoke_shard_{i}",
             dataset_args={"n": 2, "h": 32, "w": 32},
@@ -3154,16 +3175,21 @@ def _joined(thread, what: str, timeout: float = 300.0):
     return thread
 
 
-def _check_sharded_runs(runs: str) -> dict:
+def _check_sharded_runs(runs: str, shards: int = 2, configs: int = 3
+                        ) -> dict:
+    """``run_sharded``'s manifests: ``configs`` configs dealt round robin
+    to ``shards`` workers, disjoint, none failed, each worker on a card;
+    one ``comparison.md`` naming every run."""
     m = [json.load(open(os.path.join(runs, f"shard_{i}.json")))
-         for i in range(2)]
+         for i in range(shards)]
     jobs = [set(x["jobs"]) for x in m]
-    if any(x["failures"] for x in m) or [len(j) for j in jobs] != [2, 1] \
-            or jobs[0] & jobs[1] or any(
+    dealt = [len(range(i, configs, shards)) for i in range(shards)]
+    if any(x["failures"] for x in m) or [len(j) for j in jobs] != dealt \
+            or len(set().union(*jobs)) != configs or any(
                 not x["device"].startswith("cuda") for x in m):
         raise AssertionError(f"run_sharded shards: {m}")
     table = open(os.path.join(runs, "comparison.md")).read()
-    if not all(f"smoke_shard_{i}" in table for i in range(3)):
+    if not all(f"smoke_shard_{i}" in table for i in range(configs)):
         raise AssertionError("run_sharded: comparison.md lacks a run")
     return {"shards": [sorted(os.path.basename(p) for p in j)
                        for j in jobs], "devices": [x["device"] for x in m],
@@ -3171,8 +3197,10 @@ def _check_sharded_runs(runs: str) -> dict:
 
 
 def mesh_path(device, root: str) -> dict:
-    """The device mesh on the one card (``parallel/mesh.py``): two ranks
-    on ``cuda:0`` over gloo (they share the card). (a) The batched fused
+    """The device mesh (``parallel/mesh.py``): two ranks on the backend
+    that ``backend_for`` names here, gloo on one card (they share
+    ``cuda:0``), NCCL on a machine with two cards or more (``cuda:0`` and
+    ``cuda:1``). (a) The batched fused
     fit (bench model, 4 images at 480x640, the gate, ``MESH_STEPS``
     steps) on (2, 1) and (1, 2) against the single-process fit: on each,
     a step at the inits and at the fitted params (each rank's K2 on its
@@ -3181,14 +3209,14 @@ def mesh_path(device, root: str) -> dict:
     ``LOSS_RTOL``, the final ones within 1e-2, the same gate outcomes;
     (2, 1) bitwise where K2's launch tiles an image as at G = 4; K2
     launches per rank = the steps (plus the retry's), the grid
-    ``all_reduce``'s share of a step; every rank on gloo and a card. (b) The convexity runner on
+    ``all_reduce``'s share of a step; every rank on the rule's backend
+    and a card (:func:`_check_where`). (b) The convexity runner on
     [2, 1] and [1, 2], ``MESH_RUNNER_EPOCHS`` epochs: loss histories
     within rtol 2e-3, atol 2e-4 of the single-process run, one K4 and one
     K5 launch per rank per epoch. (c) ``run_sharded --spawn`` with two
-    workers on the card and 3 tiny configs: disjoint shards, one
+    workers on the cards and 3 tiny configs: disjoint shards, one
     ``comparison.md``. (d) ``dryrun_multichip(2)``. (c) and (d) run beside
-    the ranks. Gloo's collectives on one card are not NCCL's across
-    cards."""
+    the ranks. The record's ``collectives`` says which backend ran."""
     import shutil
 
     import torch
@@ -3236,6 +3264,97 @@ def mesh_path(device, root: str) -> dict:
         dry.join(timeout=300)
 
 
+def mesh_fit_entry(single, ranks, shape, n: int, steps: int,
+                   bitwise_expected: bool) -> dict:
+    """The checks of the mesh fit on ``shape`` = (data, grid) against the
+    single-process fit (see :func:`mesh_path`) and its record. ``ranks``:
+    every rank's results, under ``fit_{data}x{grid}`` (rank 0's with its
+    params, histories and steps); ``n``: the points of an image;
+    ``bitwise_expected``: K2 tiles an image on a rank as in the single
+    fit, so the params must be equal in every bit."""
+    d, g = shape
+    key = f"fit_{d}x{g}"
+    b = len(single["gate_iou"])
+    # the gate's retry refits (the failed images only) for the full steps
+    launched = single["k2"]
+    if launched != 2 * steps:
+        raise AssertionError(f"single fit: {launched} K2 launches for "
+                             f"{steps} steps and the retry's")
+    res = ranks[0][key]
+    k2 = [r[key]["k2"] for r in ranks]
+    if any(x != launched for x in k2):
+        raise AssertionError(f"{key}: K2 launches per rank {k2}, the "
+                             f"single fit's {launched}")
+    diff = max(float(np.abs(a - r).max())
+               for a, r in zip(res["params"], single["params"]))
+    entry = {"where": _check_where([r[key]["where"] for r in ranks], key),
+             "k2_per_rank": k2, "local_images": b // d if b % d == 0 else b,
+             "local_points": n // g if n % g == 0 else n,
+             "seconds": max(r[key]["seconds"] for r in ranks),
+             "max_param_diff": diff,
+             "max_loss_rel_diff": float(np.max(
+                 np.abs(res["loss_hist"] - single["loss_hist"])
+                 / np.abs(single["loss_hist"]))),
+             "gate_iou": [float(v) for v in res["gate_iou"]]}
+    entry["ms_per_step"] = 1e3 * entry["seconds"] / launched
+    if g == 1:
+        entry["bitwise_expected"] = bool(bitwise_expected)
+        entry["bitwise"] = diff == 0.0
+        if bitwise_expected and diff != 0.0:
+            raise AssertionError(f"{key}: K2 tiles an image as at G={b}, "
+                                 f"yet params differ by {diff}")
+    # step for step at fixed params (each rank's K2 on its block of the
+    # images and points), the kernel's tolerances
+    for at_name in ("init", "fitted"):
+        (l1, g1), (lm, gm) = (single[f"step_{at_name}"],
+                              res[f"step_{at_name}"])
+        np.testing.assert_allclose(lm, l1, rtol=LOSS_RTOL)
+        np.testing.assert_allclose(gm, g1, rtol=5e-4,
+                                   atol=1e-6 * np.abs(g1).max())
+        entry[f"step_{at_name}_loss_rel_diff"] = float(np.max(
+            np.abs(lm - l1) / np.abs(l1)))
+    # the trajectory, before the sums' order has been amplified
+    np.testing.assert_allclose(
+        res["loss_hist"][:, :MESH_EXACT_STEPS],
+        single["loss_hist"][:, :MESH_EXACT_STEPS], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(res["loss_hist"][:, -1],
+                               single["loss_hist"][:, -1], rtol=1e-2)
+    if not np.array_equal(res["gate_iou"] >= 0.5,
+                          single["gate_iou"] >= 0.5):
+        raise AssertionError(f"{key}: gate {res['gate_iou']} "
+                             f"against {single['gate_iou']}")
+    entry["exact_steps"] = MESH_EXACT_STEPS
+    if g > 1:
+        entry["allreduce_ms"] = [r[key]["allreduce_ms"] for r in ranks]
+        entry["allreduce_share"] = (
+            max(entry["allreduce_ms"]) / entry["ms_per_step"])
+    return entry
+
+
+def mesh_runner_entry(single_runner, ranks, shape, epochs: int) -> dict:
+    """The checks of the mesh runner on ``shape`` against the
+    single-process run (loss histories within ``MESH_RUNNER_RTOL`` and
+    ``MESH_RUNNER_ATOL``, one K4 and one K5 launch per rank per epoch and
+    K4 once more per evaluation) and its record. ``ranks``: every rank's
+    results, under ``runner_{data}x{grid}``."""
+    key = f"runner_{shape[0]}x{shape[1]}"
+    res = ranks[0][key]
+    if res["mesh"] != {"data": shape[0], "grid": shape[1]}:
+        raise AssertionError(f"{key}: the runner's mesh {res['mesh']}")
+    np.testing.assert_allclose(res["loss_hist"], single_runner["loss_hist"],
+                               rtol=MESH_RUNNER_RTOL, atol=MESH_RUNNER_ATOL)
+    k45 = [(r[key]["k4"], r[key]["k5"]) for r in ranks]
+    for k4, k5 in k45:
+        if k5 != epochs or k4 != epochs + res["evals"]:
+            raise AssertionError(f"{key}: K4/K5 launches per rank {k45} in "
+                                 f"{epochs} epochs, {res['evals']} "
+                                 "evaluations")
+    return {"k4_k5_per_rank": k45, "evals": res["evals"],
+            "seconds": max(r[key]["seconds"] for r in ranks),
+            "max_loss_diff": float(np.abs(
+                res["loss_hist"] - single_runner["loss_hist"]).max())}
+
+
 def _mesh_checks(device, ranks, single, single_runner, sweep, dry, runs,
                  t_all) -> dict:
     """The mesh phase's checks and record (see :func:`mesh_path`)."""
@@ -3243,9 +3362,10 @@ def _mesh_checks(device, ranks, single, single_runner, sweep, dry, runs,
 
     from awesome_tpu_torch.ops.flagship import FlagshipSpec, launch_shape
 
+    where = _check_where([r[f"fit_{MESH_RANKS}x1"]["where"]
+                          for r in ranks], "mesh_rank")
     out = {"phase": "mesh", "ranks": MESH_RANKS,
-           "collectives": "gloo between two processes on one card, not "
-                          "NCCL across cards",
+           "collectives": _collectives(where),
            "fit": {"shape": list(MESH_SHAPE), "images": len(MESH_SHIFTS),
                    "steps": MESH_STEPS, "single_s": single["seconds"],
                    "single_ms_per_step": 1e3 * single["seconds"]
@@ -3254,91 +3374,19 @@ def _mesh_checks(device, ranks, single, single_runner, sweep, dry, runs,
     spec = FlagshipSpec.of(bench_model(MESH_SHAPE, device))
     n = MESH_SHAPE[0] * MESH_SHAPE[1]
     b = len(MESH_SHIFTS)
-    # the gate's retry refits (the failed images only) for the full steps
-    launched = single["k2"]
-    if launched != 2 * MESH_STEPS:
-        raise AssertionError(f"single fit: {launched} K2 launches for "
-                             f"{MESH_STEPS} steps and the retry's")
+    dev = torch.device(device)
     for d, g in ((MESH_RANKS, 1), (1, MESH_RANKS)):
-        key = f"fit_{d}x{g}"
-        res = ranks[0][key]
-        k2 = [r[key]["k2"] for r in ranks]
-        if any(x != launched for x in k2):
-            raise AssertionError(f"{key}: K2 launches per rank {k2}, the "
-                                 f"single fit's {launched}")
-        diff = max(float(np.abs(a - r).max())
-                   for a, r in zip(res["params"], single["params"]))
-        entry = {"where": _check_where([r[key]["where"] for r in ranks],
-                                       key),
-                 "k2_per_rank": k2, "local_images": b // d,
-                 "local_points": n // g,
-                 "seconds": max(r[key]["seconds"] for r in ranks),
-                 "max_param_diff": diff,
-                 "max_loss_rel_diff": float(np.max(
-                     np.abs(res["loss_hist"] - single["loss_hist"])
-                     / np.abs(single["loss_hist"]))),
-                 "gate_iou": [float(v) for v in res["gate_iou"]]}
-        entry["ms_per_step"] = 1e3 * entry["seconds"] / launched
-        if g == 1:
-            same = launch_shape(spec, n, b // d, None, torch.device(
-                device)) == launch_shape(spec, n, b, None,
-                                         torch.device(device))
-            entry["bitwise_expected"] = bool(same)
-            entry["bitwise"] = diff == 0.0
-            if same and diff != 0.0:
-                raise AssertionError(f"{key}: K2 tiles an image as at G="
-                                     f"{b}, yet params differ by {diff}")
-        # step for step at fixed params (each rank's K2 on its block of
-        # the images and points), the kernel's tolerances
-        for at_name in ("init", "fitted"):
-            (l1, g1), (lm, gm) = (single[f"step_{at_name}"],
-                                  res[f"step_{at_name}"])
-            np.testing.assert_allclose(lm, l1, rtol=LOSS_RTOL)
-            np.testing.assert_allclose(gm, g1, rtol=5e-4,
-                                       atol=1e-6 * np.abs(g1).max())
-            entry[f"step_{at_name}_loss_rel_diff"] = float(np.max(
-                np.abs(lm - l1) / np.abs(l1)))
-        # the trajectory, before the sums' order has been amplified
-        np.testing.assert_allclose(
-            res["loss_hist"][:, :MESH_EXACT_STEPS],
-            single["loss_hist"][:, :MESH_EXACT_STEPS], rtol=LOSS_RTOL)
-        final = res["loss_hist"][:, -1], single["loss_hist"][:, -1]
-        np.testing.assert_allclose(final[0], final[1], rtol=1e-2)
-        if not np.array_equal(res["gate_iou"] >= 0.5,
-                              single["gate_iou"] >= 0.5):
-            raise AssertionError(f"{key}: gate {res['gate_iou']} "
-                                 f"against {single['gate_iou']}")
-        entry["exact_steps"] = MESH_EXACT_STEPS
-        if g > 1:
-            entry["allreduce_ms"] = [r[key]["allreduce_ms"] for r in ranks]
-            entry["allreduce_share"] = (
-                max(entry["allreduce_ms"]) / entry["ms_per_step"])
-        out["fit"][key] = entry
+        same = g == 1 and launch_shape(spec, n, b // d, None, dev) == \
+            launch_shape(spec, n, b, None, dev)
+        out["fit"][f"fit_{d}x{g}"] = mesh_fit_entry(
+            single, ranks, (d, g), n, MESH_STEPS, same)
     out["runner"] = {"epochs": MESH_RUNNER_EPOCHS,
                      "pretrain_steps": MESH_RUNNER_PRETRAIN,
                      "single_s": single_runner["seconds"],
                      "padded_points": single_runner["padded_points"]}
     for shape in ((MESH_RANKS, 1), (1, MESH_RANKS)):
-        key = f"runner_{shape[0]}x{shape[1]}"
-        res = ranks[0][key]
-        if res["mesh"] != {"data": shape[0], "grid": shape[1]}:
-            raise AssertionError(f"{key}: the runner's mesh {res['mesh']}")
-        np.testing.assert_allclose(res["loss_hist"],
-                                   single_runner["loss_hist"],
-                                   rtol=MESH_RUNNER_RTOL,
-                                   atol=MESH_RUNNER_ATOL)
-        k45 = [(r[key]["k4"], r[key]["k5"]) for r in ranks]
-        for k4, k5 in k45:
-            if k5 != MESH_RUNNER_EPOCHS or k4 != MESH_RUNNER_EPOCHS + \
-                    res["evals"]:
-                raise AssertionError(f"{key}: K4/K5 launches per rank "
-                                     f"{k45} in {MESH_RUNNER_EPOCHS} "
-                                     f"epochs, {res['evals']} evaluations")
-        out["runner"][key] = {
-            "k4_k5_per_rank": k45, "evals": res["evals"],
-            "seconds": max(r[key]["seconds"] for r in ranks),
-            "max_loss_diff": float(np.abs(
-                res["loss_hist"] - single_runner["loss_hist"]).max())}
+        out["runner"][f"runner_{shape[0]}x{shape[1]}"] = mesh_runner_entry(
+            single_runner, ranks, shape, MESH_RUNNER_EPOCHS)
 
     dry = _joined(dry, "dryrun_multichip")
     _check_where(dry.result["ranks"], "dryrun_multichip")
