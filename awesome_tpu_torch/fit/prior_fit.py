@@ -15,6 +15,7 @@ param tree); each image keeps its own plateau and NaN-guard state, as JAX's
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
@@ -26,6 +27,7 @@ from awesome_tpu_torch.measures.losses import unaries_weight
 from awesome_tpu_torch.measures.metrics import iou
 from awesome_tpu_torch.nn.module import make_generator
 from awesome_tpu_torch.parallel.mesh import sum_trees
+from awesome_tpu_torch.utils.profiling import span
 
 Params = Any
 
@@ -132,47 +134,90 @@ def run_fit_loop(loss_grad: Callable, params: Params, cfg: FitConfig,
     (one value per image). ``group_mean``: one optimizer/plateau state for
     the whole group, driven by the mean loss (the grouped fused fit).
     Returns ``(params, loss_hist (steps, *batch_shape), lr_scale)``. Adds
-    the steps it ran to ``run_fit_loop.steps``.
+    the steps it ran to ``run_fit_loop.steps``, and its image-steps and
+    masked image-steps to :data:`loop_work` (:func:`fit_loop_counts`).
+    Under a profiler the loop is the span ``fit.loop``, each step's
+    ``loss_grad`` call ``fit.loss_grad`` and the rest of the step
+    ``fit.update``.
     """
-    init_fn, update_fn = _optim_fns(cfg)
-    dev = T.tree_leaves(params)[0].device
-    state_shape = () if group_mean else batch_shape
-    opt_state = init_fn(params, state_shape)
-    sched = optim.plateau_init(cfg.dtype, state_shape, dev)
-    active = torch.as_tensor(active, device=dev)
-    hist = []
-    for _ in range(cfg.num_steps):
-        loss_vec, grads = loss_grad(params)
-        loss = loss_vec.mean() if group_mean else loss_vec
-        lr = cfg.lr * sched.scale
-        new_params, new_opt = update_fn(params, grads, opt_state, lr,
-                                        weight_decay=weight_decay)
-        new_params = clip(new_params)
-        if cfg.nan_guard:
-            ok = torch.isfinite(loss_vec)
-            if group_mean:
-                ok = ok.all()
-            if check_grads:
-                ok = ok & _all_finite(grads, batch_shape)
+    with span("fit.loop"):
+        init_fn, update_fn = _optim_fns(cfg)
+        dev = T.tree_leaves(params)[0].device
+        state_shape = () if group_mean else batch_shape
+        opt_state = init_fn(params, state_shape)
+        sched = optim.plateau_init(cfg.dtype, state_shape, dev)
+        active = torch.as_tensor(active, device=dev)
+        loop_work.add(active, batch_shape, cfg.num_steps)
+        hist = []
+        for _ in range(cfg.num_steps):
+            with span("fit.loss_grad"):
+                loss_vec, grads = loss_grad(params)
+            with span("fit.update"):
+                loss = loss_vec.mean() if group_mean else loss_vec
+                lr = cfg.lr * sched.scale
+                new_params, new_opt = update_fn(params, grads, opt_state, lr,
+                                                weight_decay=weight_decay)
+                new_params = clip(new_params)
+                if cfg.nan_guard:
+                    ok = torch.isfinite(loss_vec)
+                    if group_mean:
+                        ok = ok.all()
+                    if check_grads:
+                        ok = ok & _all_finite(grads, batch_shape)
+                else:
+                    ok = torch.ones(state_shape, dtype=torch.bool, device=dev)
+                if cfg.lr_stop_scale > 0.0:
+                    ok = ok & (sched.scale > cfg.lr_stop_scale)
+                ok = ok & active
+                params = T.tree_where(ok, new_params, params)
+                opt_state = T.tree_where(ok, new_opt, opt_state)
+                sched = optim.plateau_update(sched, loss,
+                                             factor=cfg.plateau_factor,
+                                             patience=cfg.plateau_patience)
+                hist.append(loss_vec)
+        run_fit_loop.steps += cfg.num_steps
+        if hist:
+            loss_hist = torch.stack(hist)
         else:
-            ok = torch.ones(state_shape, dtype=torch.bool, device=dev)
-        if cfg.lr_stop_scale > 0.0:
-            ok = ok & (sched.scale > cfg.lr_stop_scale)
-        ok = ok & active
-        params = T.tree_where(ok, new_params, params)
-        opt_state = T.tree_where(ok, new_opt, opt_state)
-        sched = optim.plateau_update(sched, loss, factor=cfg.plateau_factor,
-                                     patience=cfg.plateau_patience)
-        hist.append(loss_vec)
-    run_fit_loop.steps += cfg.num_steps
-    if hist:
-        loss_hist = torch.stack(hist)
-    else:
-        loss_hist = torch.zeros((0,) + batch_shape, device=dev)
-    return params, loss_hist, sched.scale
+            loss_hist = torch.zeros((0,) + batch_shape, device=dev)
+        return params, loss_hist, sched.scale
 
 
 run_fit_loop.steps = 0
+
+
+class _LoopWork:
+    """What the fit loops ran beside their steps: ``image_steps``, the
+    images of each loop's batch times its steps (a host int), and of those
+    the image-steps of images whose ``active`` was false (the gate's
+    refit's passing images, a sequential fit's invalid frames), counted on
+    the mask's device so that no fit waits on the host;
+    :meth:`masked_image_steps` reads them (one host read a device)."""
+
+    def __init__(self):
+        self.image_steps = 0
+        self.masked = {}  # device -> int64 tensor
+
+    def add(self, active: torch.Tensor, batch_shape: Tuple[int, ...],
+            steps: int) -> None:
+        self.image_steps += math.prod(batch_shape) * steps
+        n = (~active).expand(batch_shape).sum() * steps
+        key = active.device
+        self.masked[key] = self.masked[key] + n if key in self.masked else n
+
+    def masked_image_steps(self) -> int:
+        return sum(int(n) for n in self.masked.values())
+
+
+loop_work = _LoopWork()
+
+
+def fit_loop_counts() -> dict:
+    """The fit loops' counters so far: ``steps``, ``image_steps`` and
+    ``masked_image_steps`` (which reads the devices' counts)."""
+    return {"steps": run_fit_loop.steps,
+            "image_steps": loop_work.image_steps,
+            "masked_image_steps": loop_work.masked_image_steps()}
 
 
 def summed_over_points(loss_grad: Callable,
@@ -411,10 +456,11 @@ def make_batched_fit_fn(model, cfg: FitConfig, per_image_points: bool = False,
                              valid_mask, point_masks, grid_sum=grid_sum)
         gate = torch.ones((batch,), dtype=torch.bool, device=dev)
         if cfg.gate_threshold is not None:
-            fitted, scores = gate_retry(fitted, points, stacked_targets,
-                                        valid_mask, retry_keys=retry_keys,
-                                        point_masks=point_masks,
-                                        grid_sum=grid_sum)
+            with span("fit.gate"):
+                fitted, scores = gate_retry(
+                    fitted, points, stacked_targets, valid_mask,
+                    retry_keys=retry_keys, point_masks=point_masks,
+                    grid_sum=grid_sum)
             aux["gate_iou"] = scores
             gate = scores >= cfg.gate_threshold
         aux["gate_pass"] = gate

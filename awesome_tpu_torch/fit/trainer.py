@@ -38,6 +38,7 @@ from awesome_tpu_torch.measures.losses import (
 )
 from awesome_tpu_torch.nn.conv import batch_stats_over
 from awesome_tpu_torch.nn.module import make_generator
+from awesome_tpu_torch.utils.profiling import span
 
 Params = Any
 
@@ -208,7 +209,11 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
     ``batch``: 'image' (B, H, W, C), 'features' (B, H, W, F), 'grid' (B, N,
     2) or (N, 2) shared, 'target' (B, H, W, 1), 'index' (B,) int (the
     images' prior slices); optional 'weight' (B,) (0 for padded samples)
-    and 'lr_scale'. ``mesh``: see the module docstring."""
+    and 'lr_scale'. ``mesh``: see the module docstring. Under a profiler
+    a step is the span ``joint.step``, holding ``joint.forward`` and
+    ``joint.backward`` (:func:`_value_and_grads`) and ``joint.update`` (the
+    optimizers, the clip, the ``tree_where``s and the scatter); its own
+    time is the gather of the batch's priors."""
     seg_upd = _optim(cfg.optimizer)[1]
     prior_upd = _optim(cfg.prior_optimizer)[1]
     prior = wrapper.prior_module
@@ -230,6 +235,10 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
         return blocks.whole_batch(out), new_seg_state
 
     def step(state: JointTrainState, batch):
+        with span("joint.step"):
+            return _step(state, batch)
+
+    def _step(state: JointTrainState, batch):
         idx = torch.as_tensor(batch["index"], dtype=torch.long,
                               device=batch["image"].device)
         lr_scale = batch.get("lr_scale", 1.0)
@@ -256,31 +265,33 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
         seg_g = blocks.seg_grads(seg_g)
         prior_g = blocks.prior_grads(prior_g)
         metrics = {k: v.detach() for k, v in res.items()}
-        ok = _finite(loss, cfg)
-        new_seg, new_seg_opt = _seg_update(cfg, seg_upd, state, seg_g, ok,
-                                           lr_scale)
-        metrics["nan_skipped"] = ~ok
-        if not has_prior:
-            return JointTrainState(new_seg, new_seg_state, new_seg_opt,
-                                   state.prior_params, state.prior_opt,
-                                   state.step + 1), metrics
+        with span("joint.update"):
+            ok = _finite(loss, cfg)
+            new_seg, new_seg_opt = _seg_update(cfg, seg_upd, state, seg_g, ok,
+                                               lr_scale)
+            metrics["nan_skipped"] = ~ok
+            if not has_prior:
+                return JointTrainState(new_seg, new_seg_state, new_seg_opt,
+                                       state.prior_params, state.prior_opt,
+                                       state.step + 1), metrics
 
-        wd = _flow_weight_decay(prior, T.tree_select(prior_batch, 0), cfg)
-        new_pb, new_ob = prior_upd(prior_batch, prior_g, prior_opt_batch,
-                                   cfg.prior_lr * lr_scale, weight_decay=wd)
-        if hasattr(prior, "enforce_convexity"):
-            new_pb = prior.enforce_convexity(new_pb)
-        keep = ok if weight is None else ok & (weight > 0)
-        new_pb = T.tree_where(keep, new_pb, prior_batch)
-        new_ob = T.tree_where(keep, new_ob, prior_opt_batch)
-        new_prior = T.tree_map(lambda s, v: s.index_copy(0, idx, v),
-                               state.prior_params, new_pb)
-        new_prior_opt = T.tree_map(
-            lambda s, v: s.index_copy(0, idx, v) if s.ndim > 0 else v,
-            state.prior_opt, new_ob)
-        return JointTrainState(new_seg, new_seg_state, new_seg_opt,
-                               new_prior, new_prior_opt,
-                               state.step + 1), metrics
+            wd = _flow_weight_decay(prior, T.tree_select(prior_batch, 0), cfg)
+            new_pb, new_ob = prior_upd(prior_batch, prior_g, prior_opt_batch,
+                                       cfg.prior_lr * lr_scale,
+                                       weight_decay=wd)
+            if hasattr(prior, "enforce_convexity"):
+                new_pb = prior.enforce_convexity(new_pb)
+            keep = ok if weight is None else ok & (weight > 0)
+            new_pb = T.tree_where(keep, new_pb, prior_batch)
+            new_ob = T.tree_where(keep, new_ob, prior_opt_batch)
+            new_prior = T.tree_map(lambda s, v: s.index_copy(0, idx, v),
+                                   state.prior_params, new_pb)
+            new_prior_opt = T.tree_map(
+                lambda s, v: s.index_copy(0, idx, v) if s.ndim > 0 else v,
+                state.prior_opt, new_ob)
+            return JointTrainState(new_seg, new_seg_state, new_seg_opt,
+                                   new_prior, new_prior_opt,
+                                   state.step + 1), metrics
 
     return step
 
@@ -326,11 +337,13 @@ def _value_and_grads(compute_loss: Callable, seg_params: Params,
     prior_leaves = T.tree_map(lambda x: x.detach().requires_grad_(True),
                               prior_params)
     with torch.enable_grad():
-        loss, aux = compute_loss(seg_leaves, prior_leaves)
+        with span("joint.forward"):
+            loss, aux = compute_loss(seg_leaves, prior_leaves)
         wrt = T.tree_leaves(seg_leaves) + T.tree_leaves(prior_leaves)
-        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-    grads = [torch.zeros_like(w) if g is None else g
-             for w, g in zip(wrt, grads)]
+        with span("joint.backward"):
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+            grads = [torch.zeros_like(w) if g is None else g
+                     for w, g in zip(wrt, grads)]
     n_seg = len(T.tree_leaves(seg_leaves))
     return (loss.detach(), aux, _unflatten(seg_params, grads[:n_seg]),
             _unflatten(prior_params, grads[n_seg:]))

@@ -4,6 +4,8 @@ only wall-clock timers and a NaN abort).
 
 - :func:`trace` — a ``torch.profiler`` window writing a trace that
   TensorBoard and Perfetto read,
+- :func:`span` — a named phase of the program in a running profiler's
+  trace (and nothing without one),
 - :class:`PhaseTimer` — named phase wall-clock accounting with device
   sync, reportable as a dict,
 - :func:`debug_guard` — autograd's anomaly mode as the NaN tripwire,
@@ -40,6 +42,49 @@ def trace(log_dir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+class _Span:
+    """A ``record_function`` range that also adds its host seconds to
+    ``span.totals``."""
+
+    __slots__ = ("name", "range", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        total = span.totals.setdefault(self.name, [0, 0.0])
+        total[0] += 1
+        total[1] += time.perf_counter() - self.t0
+        return self.range.__exit__(*exc)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("fit.update"): ...`` marks a phase of the program in the
+    trace of a running profiler (:func:`trace`, ``torch.profiler.profile``,
+    or nsys under ``emit_nvtx``): a ``record_function`` range, an event of
+    the same capture as the card's ops and on their clock. Without a
+    profiler it is a null context, at the cost of one flag check.
+
+    While a profiler runs, each span also adds its count and host seconds
+    to ``span.totals[name]`` (``[count, seconds]``), so that a caller reads
+    the phases of a profiled window without parsing its trace."""
+    if torch._C._autograd._profiler_enabled():
+        return _Span(name)
+    return _NO_SPAN
+
+
+span.totals = {}
 
 
 class PhaseTimer:
