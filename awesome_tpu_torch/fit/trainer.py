@@ -34,10 +34,20 @@ from awesome_tpu_torch.fit import optim
 from awesome_tpu_torch.measures.losses import (
     bce,
     fbms_joint_loss,
+    penalty_clip_scale,
     unaries_weighted_loss,
 )
 from awesome_tpu_torch.nn.conv import batch_stats_over
 from awesome_tpu_torch.nn.module import make_generator
+from awesome_tpu_torch.ops.flagship import (
+    FlagshipLossGrad,
+    flagship_supported,
+    make_flagship_loss_grad,
+    pack_flagship,
+    pack_flat,
+    unpack_flagship,
+    unpack_flat,
+)
 from awesome_tpu_torch.utils.profiling import span
 
 Params = Any
@@ -132,7 +142,13 @@ def joint_train_init(wrapper, generator: Optional[torch.Generator],
 def _default_loss_fn(cfg: JointTrainConfig, has_prior: bool) -> Callable:
     """The joint loss on NHWC (B, H, W, 2) [seg, prior] outputs (the
     sssdms-weighted BCE alone without a prior); with per-sample weights,
-    each sample's loss (its own class weights) weighted and normalized."""
+    each sample's loss (its own class weights) weighted and normalized.
+
+    ``loss_fn(..., penalty_weights=True)`` also returns each point's
+    weight (B, H * W) of its squared prior-to-seg error in the loss: the
+    penalty's mean, clip scale and sample weight folded into one factor.
+    The prior output enters the loss only there, so its gradient is that
+    of ``sum(weights * (prior - seg) ** 2)`` with ``seg`` held constant."""
 
     def one(out_cf, tgt_cf):
         if has_prior:
@@ -142,17 +158,49 @@ def _default_loss_fn(cfg: JointTrainConfig, has_prior: bool) -> Callable:
         return {"loss": unaries_weighted_loss(out_cf, tgt_cf, criterion=bce,
                                               mode="sssdms")}
 
-    def loss_fn(output, target, weight=None):
+    def penalty_factor(terms):
+        """beta times the penalty's clip scale, from the loss's terms."""
+        if not cfg.clip_penalty:
+            return cfg.beta
+        return cfg.beta * penalty_clip_scale(
+            cfg.alpha * terms["segmentation_loss"],
+            cfg.beta * terms["penalty_loss"])
+
+    def loss_fn(output, target, weight=None, penalty_weights=False):
         out_cf = torch.movedim(output, -1, 1)
         tgt_cf = torch.movedim(target, -1, 1)
+        b, n = output.shape[0], output.shape[1] * output.shape[2]
         if weight is None:
-            return one(out_cf, tgt_cf)
-        per = torch.func.vmap(lambda o, t: one(o[None], t[None]))(out_cf,
-                                                                  tgt_cf)
-        wsum = torch.clamp_min(weight.sum(), 1.0)
-        return {k: (v * weight).sum() / wsum for k, v in per.items()}
+            res = one(out_cf, tgt_cf)
+            if not penalty_weights:
+                return res
+            per_point = penalty_factor(res) / (b * n)
+        else:
+            per = torch.func.vmap(lambda o, t: one(o[None], t[None]))(
+                out_cf, tgt_cf)
+            wsum = torch.clamp_min(weight.sum(), 1.0)
+            res = {k: (v * weight).sum() / wsum for k, v in per.items()}
+            if not penalty_weights:
+                return res
+            per_point = (penalty_factor(per) * weight / wsum / n)[:, None]
+        return res, torch.as_tensor(per_point, dtype=output.dtype,
+                                    device=output.device
+                                    ).expand(b, n).contiguous()
 
     return loss_fn
+
+
+def _prior_grad_kernel(wrapper, loss_fn: Optional[Callable],
+                       mesh) -> Optional[FlagshipLossGrad]:
+    """The fused flagship loss+grad (K2: one launch for a batch's priors)
+    where it gives the joint step's prior grads: the default loss, a
+    prior of the flagship family, no mesh. None where autograd does."""
+    prior = wrapper.prior_module
+    if loss_fn is not None or mesh is not None or prior is None \
+            or not flagship_supported(prior):
+        return None
+    return make_flagship_loss_grad(prior,
+                                   use_sigmoid=wrapper.use_prior_sigmoid)
 
 
 class _Blocks:
@@ -209,15 +257,28 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
     ``batch``: 'image' (B, H, W, C), 'features' (B, H, W, F), 'grid' (B, N,
     2) or (N, 2) shared, 'target' (B, H, W, 1), 'index' (B,) int (the
     images' prior slices); optional 'weight' (B,) (0 for padded samples)
-    and 'lr_scale'. ``mesh``: see the module docstring. Under a profiler
-    a step is the span ``joint.step``, holding ``joint.forward`` and
-    ``joint.backward`` (:func:`_value_and_grads`) and ``joint.update`` (the
-    optimizers, the clip, the ``tree_where``s and the scatter); its own
-    time is the gather of the batch's priors."""
+    and 'lr_scale'. ``mesh``: see the module docstring.
+
+    The prior grads come from one fused flagship loss+grad call for the
+    batch (K2 on the card, its plain version on the CPU) where the step
+    has the default loss (``loss_fn`` None), a prior of the flagship
+    family (``ops.flagship.flagship_supported``) and no mesh: the priors
+    then run forward without autograd, the seg grads are exact with their
+    outputs as constants, and the kernel takes the penalty's per-point
+    weights (:func:`_default_loss_fn`). A custom ``loss_fn``, another
+    prior or a mesh keeps autograd through the ``vmap``-ed prior, as does
+    the multi-object step.
+
+    Under a profiler a step is the span ``joint.step``, holding
+    ``joint.forward`` and ``joint.backward`` (:func:`_value_and_grads`;
+    the kernel's call inside it as ``joint.prior_grad``) and
+    ``joint.update`` (the optimizers, the clip, the ``tree_where``s and
+    the scatter); its own time is the gather of the batch's priors."""
     seg_upd = _optim(cfg.optimizer)[1]
     prior_upd = _optim(cfg.prior_optimizer)[1]
     prior = wrapper.prior_module
     has_prior = prior is not None
+    k2 = _prior_grad_kernel(wrapper, loss_fn, mesh)
     loss_fn = loss_fn or _default_loss_fn(cfg, has_prior)
 
     def forward(seg_params, prior_batch, seg_state, batch, blocks):
@@ -252,16 +313,30 @@ def make_joint_train_step(wrapper, cfg: JointTrainConfig,
         def compute_loss(seg_params, prior_params):
             out, new_seg_state = forward(seg_params, prior_params,
                                          state.seg_state, batch, blocks)
-            if weight is not None:
-                res = loss_fn(out, batch["target"], weight)
-            else:
-                res = loss_fn(out, batch["target"])
+            args = (out, batch["target"]) + (
+                () if weight is None else (weight,))
+            if k2 is not None:
+                res, wpt = loss_fn(*args, penalty_weights=True)
+                return res["loss"], (res, new_seg_state, (out[..., 0], wpt))
+            res = loss_fn(*args)
             if not isinstance(res, dict):
                 res = {"loss": res}
-            return res["loss"], (res, new_seg_state)
+            return res["loss"], (res, new_seg_state, None)
 
-        loss, (res, new_seg_state), seg_g, prior_g = _value_and_grads(
-            compute_loss, state.seg_params, prior_block)
+        def prior_grads(aux):
+            """K2's grads of the batch's priors: the penalty with the seg
+            output (B, H, W) held constant as each point's target."""
+            seg, wpt = aux[2]
+            b = seg.shape[0]
+            _, grads = k2.flat(
+                pack_flat(pack_flagship(prior, prior_block), b),
+                batch["grid"].contiguous(),
+                seg.detach().reshape(b, -1).contiguous(), wpt)
+            return unpack_flagship(prior, unpack_flat(k2.spec, grads))
+
+        loss, (res, new_seg_state, _), seg_g, prior_g = _value_and_grads(
+            compute_loss, state.seg_params, prior_block,
+            None if k2 is None else prior_grads)
         seg_g = blocks.seg_grads(seg_g)
         prior_g = blocks.prior_grads(prior_g)
         metrics = {k: v.detach() for k, v in res.items()}
@@ -328,25 +403,37 @@ def _unflatten(like: Params, leaves) -> Params:
 
 
 def _value_and_grads(compute_loss: Callable, seg_params: Params,
-                     prior_params: Params):
+                     prior_params: Params,
+                     prior_grad: Optional[Callable] = None):
     """``compute_loss(seg, prior) -> (loss, aux)`` and its grads w.r.t.
     both trees (zeros where a leaf does not reach the loss): returns
-    ``(loss, aux, seg_grads, prior_grads)``."""
+    ``(loss, aux, seg_grads, prior_grads)``. With ``prior_grad``, the
+    loss takes the prior tree as a constant and the prior grads are
+    ``prior_grad(aux)``, called inside ``joint.backward`` as the span
+    ``joint.prior_grad``."""
     seg_leaves = T.tree_map(lambda x: x.detach().requires_grad_(True),
                             seg_params)
-    prior_leaves = T.tree_map(lambda x: x.detach().requires_grad_(True),
-                              prior_params)
+    prior_leaves = T.tree_map(
+        lambda x: x.detach().requires_grad_(prior_grad is None),
+        prior_params)
     with torch.enable_grad():
         with span("joint.forward"):
             loss, aux = compute_loss(seg_leaves, prior_leaves)
-        wrt = T.tree_leaves(seg_leaves) + T.tree_leaves(prior_leaves)
+        wrt = T.tree_leaves(seg_leaves)
+        if prior_grad is None:
+            wrt = wrt + T.tree_leaves(prior_leaves)
         with span("joint.backward"):
             grads = torch.autograd.grad(loss, wrt, allow_unused=True)
             grads = [torch.zeros_like(w) if g is None else g
                      for w, g in zip(wrt, grads)]
+            if prior_grad is not None:
+                with span("joint.prior_grad"):
+                    prior_g = prior_grad(aux)
     n_seg = len(T.tree_leaves(seg_leaves))
+    if prior_grad is None:
+        prior_g = _unflatten(prior_params, grads[n_seg:])
     return (loss.detach(), aux, _unflatten(seg_params, grads[:n_seg]),
-            _unflatten(prior_params, grads[n_seg:]))
+            prior_g)
 
 
 def epoch_batches(num_images: int, batch_size: int, rng
@@ -488,10 +575,7 @@ def _object_losses(cfg: JointTrainConfig, seg, prior, tgt, labeled):
         w.sum(dim=(1, 2)), 1.0)
     pen = cfg.beta * torch.mean((prior - seg) ** 2, dim=(1, 2))
     if cfg.clip_penalty:
-        scale = torch.where(pen > seg_loss,
-                            seg_loss / torch.clamp_min(pen, 1e-12),
-                            torch.ones_like(pen)).detach()
-        pen = pen * scale
+        pen = pen * penalty_clip_scale(seg_loss, pen)
     return seg_loss + pen
 
 

@@ -124,6 +124,14 @@ def _bce_none(output, target, reduction="none"):
     return bce(output, target, reduction=reduction)
 
 
+def penalty_clip_scale(seg_loss, pen_loss):
+    """The joint loss's soft clip of its penalty: the detached factor that
+    brings ``pen_loss`` down to ``seg_loss`` where it exceeds it, else 1."""
+    return torch.where(pen_loss > seg_loss,
+                       seg_loss / torch.clamp_min(pen_loss, 1e-12),
+                       torch.ones_like(pen_loss)).detach()
+
+
 def fbms_joint_loss(output, target, criterion: Optional[Callable] = None,
                     penalty_criterion: Callable = se, alpha: float = 1.0,
                     beta: float = 1.0, clip_penalty: bool = True
@@ -146,10 +154,7 @@ def fbms_joint_loss(output, target, criterion: Optional[Callable] = None,
     pen_raw = penalty_criterion(out_prior, out_seg)
     pen_loss = beta * pen_raw
     if clip_penalty:
-        scale = torch.where(pen_loss > seg_loss,
-                            seg_loss / torch.clamp_min(pen_loss, 1e-12),
-                            torch.ones_like(pen_loss)).detach()
-        pen_loss = pen_loss * scale
+        pen_loss = pen_loss * penalty_clip_scale(seg_loss, pen_loss)
     loss = seg_loss + pen_loss
     denom = torch.clamp_min(loss, 1e-12)
     return {

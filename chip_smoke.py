@@ -63,7 +63,11 @@ Phases, each printing its own line (any failure exits nonzero):
     stateful UNet) trained by ``fit/trainer.py`` with
     ``JointTrainConfig()``: 20 steps over 8 images of 64x64 in batches of
     4 (finite losses that decrease), then 3 steps on 2 images of 480x640;
-    ms per step, peak memory and the device's idle share;
+    one FP32 K2 launch a step for the batch's prior grads at both sizes,
+    and K2 at G = 2 x 480x640 against its plain version on a step's own
+    inputs (the shared grid, the seg output as targets, the penalty's
+    per-point weights) at phase 2's tolerances, two launches bitwise
+    equal; ms per step, peak memory and the device's idle share;
 12. multi-object joint training, the FBMS runner's multi-object stage
     (``train_multi_object``: a full-width UNet(4, 2) and two bench-model
     children per frame, ``JointTrainConfig()``, the children pretrained
@@ -207,7 +211,9 @@ Phases, each printing its own line (any failure exits nonzero):
     K1/K2) its time at its path's shape, its launches on that path, the
     steps, launches per step, its bound on this card, the plain version's
     time, and its error against the plain version at that shape; K2 also
-    at the multi-object paths' shapes (G = 16 at 64x64, G = 8 at 480x640),
+    at the multi-object paths' shapes (G = 16 at 64x64, G = 8 at 480x640)
+    and at the joint step's (G = 2 x 480x640 on a step's own inputs,
+    ``"path": "joint"``),
     K4/K5 at the runner's and at the convex-diffeomorphism runner's (G =
     8, per-image points), at the image-mode runner's (width 64, G = 8,
     per-image points), K1 at the FBMS pretrain's (480x640, G = 1), and K2,
@@ -341,13 +347,14 @@ def loss_grad_inputs(model, n: int, g: int, seed: int, device,
 
 
 def kernel_vs_plain(model, n: int, g: int, seed: int, device,
-                    f=None, per_image: bool = False) -> float:
+                    f=None, per_image: bool = False, inputs=None) -> float:
     """Kernel against the plain version on the same inputs; returns the
     largest absolute error over loss and grads. Raises on a mismatch or
     when two launches differ in any bit. Launches made here are taken out
     of the kernel's launch count again. ``f``: the loss+grad to check (by
     default the grouped one of ``model``); ``per_image``: a point set per
-    image."""
+    image; ``inputs``: (spec, flat, points, targets, weights) to check on
+    in place of :func:`loss_grad_inputs`'."""
     import torch
 
     from awesome_tpu_torch.ops.flagship import (
@@ -358,15 +365,15 @@ def kernel_vs_plain(model, n: int, g: int, seed: int, device,
         unpack_flat,
     )
 
-    spec, flat, pts, tgt, wts = loss_grad_inputs(model, n, g, seed, device,
-                                                 per_image)
+    spec, flat, pts, tgt, wts = inputs or loss_grad_inputs(
+        model, n, g, seed, device, per_image)
     f = f or FlagshipLossGrad(spec, True, g, None)
     before = flagship_loss_grad_cuda.launches
     loss_k, grads_k = f.flat(flat, pts, tgt, wts)
     loss_k2, grads_k2 = f.flat(flat, pts, tgt, wts)
     flagship_loss_grad_cuda.launches = before
     loss_p, grads_p = flagship_loss_grad_plain(
-        spec, unpack_flat(spec, flat), pts, tgt, wts)
+        spec, unpack_flat(spec, flat), pts, tgt, wts, f.use_sigmoid)
     grads_p = pack_flat(grads_p, g)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -549,9 +556,12 @@ def bound_ms(spec, n: int, g: int, use_bf16: bool = False,
 
 
 def kernel_entry(name, replaces, model, n, g, seed, launches, steps, reps,
-                 device, use_bf16=False, per_image=False):
+                 device, use_bf16=False, per_image=False, f=None,
+                 inputs=None):
     """Time the kernel (or its bf16 build) and the plain version at one
-    shape and hold them against each other there."""
+    shape and hold them against each other there; ``f`` and ``inputs``
+    (FP32 only): a path's own loss+grad and its inputs, as
+    :func:`kernel_vs_plain` takes them."""
     from awesome_tpu_torch.ops.flagship import (
         FlagshipLossGrad,
         flagship_loss_grad_cuda,
@@ -563,10 +573,11 @@ def kernel_entry(name, replaces, model, n, g, seed, launches, steps, reps,
         err = bf16_vs_plain(model, n, g, seed, device,
                             per_image=per_image)["max_abs_err"]
     else:
-        err = kernel_vs_plain(model, n, g, seed, device, per_image=per_image)
-    spec, flat, pts, tgt, wts = loss_grad_inputs(model, n, g, seed, device,
-                                                 per_image)
-    f = FlagshipLossGrad(spec, True, g, None, use_bf16=use_bf16)
+        err = kernel_vs_plain(model, n, g, seed, device, f, per_image,
+                              inputs)
+    spec, flat, pts, tgt, wts = inputs or loss_grad_inputs(
+        model, n, g, seed, device, per_image)
+    f = f or FlagshipLossGrad(spec, True, g, None, use_bf16=use_bf16)
     before = (flagship_loss_grad_cuda.launches,
               flagship_loss_grad_cuda.launches_bf16)
     ms = cuda_time_ms(lambda: f.flat(flat, pts, tgt, wts), reps)
@@ -575,7 +586,7 @@ def kernel_entry(name, replaces, model, n, g, seed, launches, steps, reps,
     packed = unpack_flat(spec, flat)
     plain_ms = cuda_time_ms(
         lambda: flagship_loss_grad_plain(spec, packed, pts, tgt, wts,
-                                         use_bf16=use_bf16),
+                                         f.use_sigmoid, use_bf16),
         max(3, reps // 4))
     b_ms, b_by = bound_ms(spec, n, g, use_bf16, per_image)
     return {
@@ -605,10 +616,12 @@ def device_profile(run, steps: int, ms_per_step: float) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    # kernels only: an op's own row repeats the device time of its kernels
+    # kernels only: an op's own row repeats the device time of its kernels,
+    # and a span's (``utils.profiling.span``) the time of those inside it
     rows = [(e.key, float(e.self_device_time_total))
             for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
+            if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(t for _, t in rows)
     if busy_us <= 0.0:
         return {"device_busy_ms_per_step": "not measured"}
@@ -808,13 +821,47 @@ def joint_data(h: int, w: int, t: int, seed: int, device) -> dict:
             "grid": G.flatten_grid(G.pixel_grid((h, w), device=device))}
 
 
+def joint_k2_call(step, state, batch) -> tuple:
+    """The K2 call of one joint step (``step(state, batch)``, its result
+    dropped): the step's ``FlagshipLossGrad`` and its inputs, the flat
+    prior rows (B, P), the grid, the seg output as targets (B, N) and the
+    penalty's per-point weights (B, N). Its launch is taken out of the
+    count again."""
+    from awesome_tpu_torch.ops.flagship import (
+        FlagshipLossGrad,
+        flagship_loss_grad_cuda,
+    )
+
+    seen = []
+    real = FlagshipLossGrad.flat
+
+    def keep(self, *args):
+        seen.append((self,) + tuple(a.detach().clone() for a in args))
+        return real(self, *args)
+
+    before = flagship_loss_grad_cuda.launches
+    FlagshipLossGrad.flat = keep
+    try:
+        step(state, batch)
+    finally:
+        FlagshipLossGrad.flat = real
+    flagship_loss_grad_cuda.launches = before
+    if len(seen) != 1:
+        raise AssertionError(f"a joint step called K2 {len(seen)} times")
+    f, flat, pts, tgt, wts = seen[0]
+    return f, (f.spec, flat, pts, tgt, wts)
+
+
 def joint_path(device, small=(64, 64), images=8, batch=4, epochs=10,
                large=(480, 640), large_images=2, large_steps=3):
     """Joint training of the flagship wrapper with ``JointTrainConfig()``:
     ``epochs`` epochs over ``images`` images of ``small`` size in batches
     of ``batch`` (the epoch fn), then ``large_steps`` steps on
     ``large_images`` images of ``large`` size. Finite losses, decreasing
-    at the small size (first epoch's mean against the last's)."""
+    at the small size (first epoch's mean against the last's); one K2
+    launch a step for the batch's prior grads at both sizes, and K2 at
+    the large size timed and held against its plain version on a step's
+    own inputs (``large["k2_kernel"]``, an entry of the kernels line)."""
     import numpy as _np
     import torch
 
@@ -825,6 +872,7 @@ def joint_path(device, small=(64, 64), images=8, batch=4, epochs=10,
         make_joint_epoch_fn,
         make_joint_train_step,
     )
+    from awesome_tpu_torch.ops import flagship
 
     cfg = JointTrainConfig()
     out = {"phase": "joint_path", "config": dataclasses.asdict(cfg)}
@@ -836,6 +884,7 @@ def joint_path(device, small=(64, 64), images=8, batch=4, epochs=10,
     rng = _np.random.default_rng(0)
     plans = [epoch_batches(images, batch, rng) for _ in range(epochs)]
     losses, times = [], []
+    zero_counts()
     for idx, wgt in plans:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -850,11 +899,13 @@ def joint_path(device, small=(64, 64), images=8, batch=4, epochs=10,
         raise AssertionError(f"joint loss did not decrease: "
                              f"{losses[0].mean()} -> {losses[-1].mean()}")
     per_epoch = len(plans[0][0])
+    small_k2 = _check_joint_k2(per_epoch * epochs, f"{small}")
     ms = 1e3 * sum(times[1:]) / (per_epoch * (len(times) - 1))
     idx, wgt = plans[0]
     out["small"] = {
         "shape": list(small), "images": images, "batch": batch,
-        "steps": int(state.step), "loss": [float(v) for v in hist],
+        "steps": int(state.step), "k2_launches": small_k2,
+        "loss": [float(v) for v in hist],
         "ms_per_step": ms, "first_epoch_s": times[0],
         "profile": device_profile(lambda: epoch(state, data, idx, wgt),
                                   per_epoch, ms),
@@ -868,6 +919,7 @@ def joint_path(device, small=(64, 64), images=8, batch=4, epochs=10,
     batch_l["index"] = torch.arange(large_images, device=device)
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
+    zero_counts()
     for _ in range(large_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -878,15 +930,42 @@ def joint_path(device, small=(64, 64), images=8, batch=4, epochs=10,
     if not _np.isfinite(losses).all():
         raise AssertionError("non-finite loss in joint training at "
                              f"{large}")
+    large_k2 = _check_joint_k2(large_steps, f"{large}")
+    f, inputs = joint_k2_call(step, state, batch_l)
+    n = large[0] * large[1]
+    k2 = kernel_entry(
+        f"flagship_loss_grad (K2, G={large_images} at {large[0]}x"
+        f"{large[1]}, the joint step's prior grads)",
+        "awesome_tpu/ops/pallas_flagship.py:236", None, n, large_images, 0,
+        large_k2, large_steps, 10, device, f=f, inputs=inputs)
+    shape = flagship.launch_shape(f.spec, n, large_images, f.tile_n,
+                                  inputs[2].device)
+    print(json.dumps({"phase": "kernel_vs_plain", "model": "bench",
+                      "path": "joint", "n": n, "g": large_images,
+                      "tp": shape.tp, "chunks": shape.chunks,
+                      "n_tiles": shape.n_tiles,
+                      "max_abs_err": k2["max_abs_err"],
+                      "bitwise_repeat": True}), flush=True)
     ms = 1e3 * sum(times[1:]) / max(len(times) - 1, 1)
     out["large"] = {
         "shape": list(large), "images": large_images,
-        "steps": int(state.step), "loss": losses, "ms_per_step": ms,
+        "steps": int(state.step), "k2_kernel": dict(k2, path="joint"),
+        "loss": losses, "ms_per_step": ms,
         "first_step_s": times[0],
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "profile": device_profile(lambda: step(state, batch_l), 1, ms),
     }
     return out
+
+
+def _check_joint_k2(steps: int, where: str) -> int:
+    """One FP32 K2 launch a joint step, and nothing else launched."""
+    k1, k1_bf16, k4, k5, _ = counts()
+    if k1 != steps or k1_bf16 or k4 or k5:
+        raise AssertionError(f"joint training at {where}: K2 launched {k1} "
+                             f"times in {steps} steps (bf16 {k1_bf16}, K4 "
+                             f"{k4}, K5 {k5})")
+    return k1
 
 
 def multi_object_data(h: int, w: int, t: int, seed: int, device, k: int = 2,
@@ -4098,7 +4177,8 @@ def main() -> int:
     bb_model, bb_launches, bb_steps, res = bf16_batched_path(
         BF16_BATCH_STEPS, dev)
     print(json.dumps(res), flush=True)
-    print(json.dumps(joint_path(dev)), flush=True)
+    joint = joint_path(dev)
+    print(json.dumps(joint), flush=True)
     mo_small = multi_object_path(dev, (64, 64), 8, 4, 6, 200, {2: 2},
                                  resume_at=3)
     print(json.dumps(mo_small), flush=True)
@@ -4202,6 +4282,7 @@ def main() -> int:
                           "max_abs_err": entry["max_abs_err"],
                           "bitwise_repeat": True}), flush=True)
         kernels.append(entry)
+    kernels.append(joint["large"]["k2_kernel"])
     h, w = FBMS_SHAPE
     entry = kernel_entry(
         "flagship_loss_grad (K1, G=1, FBMS per-frame pretrain)", replaces,

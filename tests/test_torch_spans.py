@@ -1,8 +1,9 @@
 """The port's spans and fit-loop counters (CPU, no JAX):
 ``utils.profiling.span`` enters no ``record_function`` without a profiler;
 under one, the fit loop, the gate and the joint step give their named,
-nested ranges and ``span.totals``; ``fit.prior_fit.loop_work`` counts
-image-steps and masked image-steps."""
+nested ranges and ``span.totals`` (on a flagship prior the joint step's
+fused prior grads as ``joint.prior_grad`` inside ``joint.backward``);
+``fit.prior_fit.loop_work`` counts image-steps and masked image-steps."""
 import numpy as np
 import pytest
 import torch
@@ -15,6 +16,7 @@ from awesome_tpu_torch.fit import trainer as TR
 from awesome_tpu_torch.nn import seg as TS
 from awesome_tpu_torch.nn import wrapper as TW
 from awesome_tpu_torch.nn.icnn import ConvexNextNet
+from awesome_tpu_torch.nn.path_connected import real_nvp_path_connected_net
 from awesome_tpu_torch.utils.profiling import span
 from torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -127,6 +129,42 @@ def test_joint_step_spans_in_order():
     assert {k: v[0] for k, v in span.totals.items()} == {
         "joint.step": 1, "joint.forward": 1, "joint.backward": 1,
         "joint.update": 1}
+
+
+def test_joint_prior_grad_span_once_a_step_inside_the_backward():
+    """On a flagship prior the fused prior grads open ``joint.prior_grad``
+    once a step, inside ``joint.backward``."""
+    prior = real_nvp_path_connected_net(
+        channels=2, hidden_units=8, flow_n_flows=2, flow_output_fn="tanh",
+        spatial_shape=(H, W), convex_net_hidden_units=8,
+        convex_net_hidden_layers=1, device=CPU)
+    wrapper = TW.WrapperModule(
+        segmentation_module=TS.UNet(in_chn=4, out_chn=1, device=CPU),
+        prior_module=prior, input_mode="image",
+        prior_arg_mode="param_clean_grid", seg_stateful=True)
+    cfg = TR.JointTrainConfig(lr=1e-3, prior_lr=1e-3)
+    state = TR.joint_train_init(wrapper, torch.Generator().manual_seed(0),
+                                4, cfg)
+    g = torch.Generator().manual_seed(1)
+    data = {"image": torch.rand((4, H, W, 3), generator=g),
+            "features": torch.rand((4, H, W, 1), generator=g),
+            "grid": TG.flatten_grid(TG.pixel_grid((H, W), device=CPU)),
+            "target": (torch.rand((4, H, W, 1), generator=g) > 0.5).float()}
+    epoch = TR.make_joint_epoch_fn(wrapper, cfg)
+    spans = _profiled(lambda: epoch(state, data, np.array([[0, 2], [1, 3]]),
+                                    np.ones((2, 2), np.float32)))
+    backward = [s for s in spans if s[0] == "joint.backward"]
+    assert len(backward) == 2
+    for b in backward:
+        assert [s[0] for s in _inside(b, spans)] == ["joint.prior_grad"]
+    for s in spans:
+        if s[0] == "joint.step":
+            assert [i[0] for i in _inside(s, spans)] == [
+                "joint.forward", "joint.backward", "joint.prior_grad",
+                "joint.update"]
+    assert {k: v[0] for k, v in span.totals.items()} == {
+        "joint.step": 2, "joint.forward": 2, "joint.backward": 2,
+        "joint.prior_grad": 2, "joint.update": 2}
 
 
 def test_loop_counts_image_steps_and_masked_image_steps():
